@@ -1,10 +1,12 @@
 """Pipeline builder of the port (after ``s2s_tpu/builder.py``).
 
 ``s2s_tpu/builder.py`` binds to ``s2s_tpu.registry``'s JAX factories, so the
-port builds its unit here over the same host pieces: ``PipelineUnit``,
+port builds its units here over the same host pieces: ``PipelineUnit``,
 ``RealtimeService``, ``RealtimeServer``, the VAD handler, the transcription
-notifier and the LM output processor.  One unit, one session: options that
-need an unported piece raise at build time and name their ROADMAP item.
+notifier and the LM output processor.  ``--num_pipelines N`` builds N units
+behind one server; the registry shares one weight set and one batched engine
+per model among them.  Options that need an unported piece raise at build
+time and name their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -29,16 +31,13 @@ from s2s_tpu.runtime.thread_manager import ThreadManager
 from s2s_tpu.stt.notifier import TranscriptionNotifier
 from s2s_tpu.vad.energy import EnergyVAD
 from s2s_tpu.vad.handler import VADHandler
-from s2s_tpu_torch.registry import GLOBAL_MODEL_CACHE, TorchHandlerContext, get_backend, refuse_batched
+from s2s_tpu_torch.registry import GLOBAL_MODEL_CACHE, TorchHandlerContext, get_backend
 
 logger = logging.getLogger(__name__)
 
 
 def check_supported(args: ParsedArguments) -> None:
     """Raise for every option whose device code is not ported yet."""
-    refuse_batched("--num_pipelines", args.module.num_pipelines)
-    refuse_batched("--llm_batched_slots", getattr(args.llm_config, "batched_slots", 1))
-    refuse_batched("--tts_batched_slots", getattr(args.tts_config, "batched_slots", 1))
     if args.vad.backend != "energy":
         raise NotImplementedError(
             f"--vad_backend {args.vad.backend}: only the energy VAD runs in s2s_tpu_torch so far "
@@ -87,7 +86,7 @@ def build_pipeline_unit(index: int, args: ParsedArguments, stop_event: threading
     vad = VADHandler(
         stop_event, input_queue, spoken_prompt_queue,
         setup_kwargs=dict(
-            model=EnergyVAD(),
+            model=EnergyVAD(),  # per unit: host arithmetic with per-session state
             should_listen=should_listen,
             speculative_turns=tracker,
             thresh=args.vad.thresh,
@@ -123,13 +122,16 @@ def build_pipeline_unit(index: int, args: ParsedArguments, stop_event: threading
     for handler in handlers:
         handler.pipeline_index = index
 
+    # speculative first-sentence generation engages when the LLM handler
+    # actually runs it: the local backend on the batched engine
+    spec_prefill = bool(getattr(llm, "speculative_prefill", False) and getattr(llm, "shared_lm", None) is not None)
     service = RealtimeService(
         text_prompt_queue=text_prompt_queue,
         should_listen=should_listen,
         chat_size=args.server.chat_size,
         speculative_turns=tracker,
         default_instructions=args.server.default_instructions,
-        speculative_prefill=False,
+        speculative_prefill=spec_prefill,
     )
     return PipelineUnit(
         index=index, service=service, cancel_scope=cancel_scope, should_listen=should_listen,
@@ -138,19 +140,34 @@ def build_pipeline_unit(index: int, args: ParsedArguments, stop_event: threading
     )
 
 
+def warmup_engines() -> None:
+    """Run every batched-engine program once before serving (a cold first
+    dispatch would stall the first sessions); safe before the server starts:
+    the engines' driver threads start on first use."""
+    for value in list(GLOBAL_MODEL_CACHE._models.values()):
+        for engine in value if isinstance(value, tuple) else (value,):
+            warm = getattr(engine, "warmup", None)
+            if callable(warm):
+                logger.info("Warming batched engine %s", type(engine).__name__)
+                warm()
+
+
 def build_pipeline(args: ParsedArguments, stop_event: threading.Event,
                    device: torch.device) -> tuple[ThreadManager, RealtimeServer]:
-    """Check the options, build the unit (models load on *device* here) and
-    the realtime server; returns (thread manager, server), not started."""
+    """Check the options, build the units (models load on *device* here),
+    warm the batched engines if asked, and build the realtime server;
+    returns (thread manager, server), not started."""
     check_supported(args)
     install_pipeline_log_filter()
-    unit = build_pipeline_unit(0, args, stop_event, device)
+    pool = [build_pipeline_unit(i, args, stop_event, device) for i in range(args.module.num_pipelines)]
     if args.module.enable_llm_proxy:
         logger.warning("LLM proxy requested but the local LLM backend does not support it")
     ice = args.server.webrtc_ice_servers
     server = RealtimeServer(
-        stop_event, [unit], host=args.server.host, port=args.server.port,
+        stop_event, pool, host=args.server.host, port=args.server.port,
         webrtc_port=args.server.webrtc_port,
         webrtc_ice_servers=[u.strip() for u in ice.split(",")] if ice else None,
     )
-    return ThreadManager([*unit.handlers, server]), server
+    if args.module.warmup_engines:
+        warmup_engines()
+    return ThreadManager([*(h for unit in pool for h in unit.handlers), server]), server

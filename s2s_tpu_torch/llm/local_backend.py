@@ -2,9 +2,12 @@
 with its device methods replaced (port of ``s2s_tpu/llm/local_backend.py``).
 
 Everything host-side (chat template, prompt fitting, UTF-8-boundary
-streaming, cancellation, token caps) is inherited unchanged.  Only the
-single-session path is ported: the cross-session batched engine
-(``shared_lm``) and the speculation built on it are ROADMAP queue 1 item 1.
+streaming, cancellation, token caps, speculative first-sentence generation)
+is inherited unchanged.  With a cross-session batched engine (``shared_lm``,
+:class:`s2s_tpu_torch.parallel.session_scheduler.BatchedLMScheduler`) greedy
+turns decode through it, as in the JAX handler; the engine's
+``prompt_capacity`` and ``start`` serve the inherited prompt fitting and
+speculation.
 """
 
 from __future__ import annotations
@@ -36,11 +39,6 @@ class LocalTorchLLMHandler(LocalJAXLLMHandler):
     """LLM stage running the port's decoder on an explicit device."""
 
     def setup(self, device: torch.device | str = "cpu", **kwargs: Any) -> None:
-        if kwargs.get("shared_lm") is not None:
-            raise NotImplementedError(
-                "the cross-session batched LLM engine is not ported to s2s_tpu_torch yet "
-                "(ROADMAP queue 1 item 1: BatchedLMScheduler)"
-            )
         self.device = torch.device(device)
         super().setup(**kwargs)
 
@@ -61,6 +59,15 @@ class LocalTorchLLMHandler(LocalJAXLLMHandler):
         padded = np.zeros(bucket, np.int32)
         padded[: len(ids)] = ids
         temperature = float(self.gen_kwargs.get("temperature", 0.0))
+        if self.shared_lm is not None and temperature <= 0:
+            adopted = self._adopt_speculation(ids, max_new, cancel_check)
+            if adopted is not None:
+                # the speculative slot has been decoding this exact prompt
+                yield from self._decode_token_stream(adopted)
+                return
+            # this turn shares the batched engine's dispatch stream
+            yield from self._decode_token_stream(self.shared_lm.generate(ids, max_new, cancel_check=cancel_check))
+            return
         chunk = max(1, int(self.gen_kwargs.get("decode_chunk_tokens", 8)))
         with self.scheduler.slot(lane):
             state = decoder_lm.init_decode_state(

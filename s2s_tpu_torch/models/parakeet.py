@@ -380,45 +380,83 @@ def joint(params: Params, cfg: ParakeetConfig, enc_t, pred_out):
 
 
 def tdt_greedy_decode(params: Params, cfg: ParakeetConfig, encoded, enc_len: int) -> list[int]:
-    """TDT greedy decode (NeMo ``GreedyTDTInfer`` semantics) for one
-    utterance.  encoded: (1, T, D); enc_len: valid frames.  Returns the
-    emitted token ids (at most MAX_TOKENS).  One host read per step."""
-    max_steps = encoded.shape[1] * (cfg.max_symbols_per_frame + 1) + MAX_TOKENS
-    blank = cfg.blank_id
-    device = encoded.device
-    pred_out, state = pred_step(
-        params, cfg, torch.full((1,), blank, dtype=torch.long, device=device),
-        init_pred_state(cfg, device=device),
-    )
-    tokens: list[int] = []
-    t = syms = steps = 0
-    while t < enc_len and len(tokens) < MAX_TOKENS and steps < max_steps:
-        token_logits, dur_logits = joint(params, cfg, encoded[:, t], pred_out)
-        token, dur = torch.stack([token_logits.argmax(-1)[0], dur_logits.argmax(-1)[0]]).tolist()
-        is_blank = token == blank
-        if not is_blank:
-            # emission: append the token, step the prediction LSTM
-            pred_out, state = pred_step(params, cfg, torch.tensor([token], device=device), state)
-            tokens.append(token)
-            syms += 1
-        # frame advance: a blank with duration 0 forces 1; an emission may
-        # stay on the frame (duration 0) at most max_symbols_per_frame times
-        advance = max(dur, 1) if is_blank else dur
-        if not is_blank and syms >= cfg.max_symbols_per_frame:
-            advance = max(advance, 1)
-        if advance > 0:
-            syms = 0
-        t += advance
-        steps += 1
-    return tokens
+    """TDT greedy decode for one utterance: the B=1 case of
+    :func:`tdt_greedy_decode_batch`.  encoded: (1, T, D); enc_len: valid
+    frames.  Returns the emitted token ids (at most MAX_TOKENS)."""
+    return tdt_greedy_decode_batch(params, cfg, encoded, [enc_len])[0]
 
 
 def transcribe_step(params: Params, cfg: ParakeetConfig, audio: torch.Tensor, n_valid: int) -> list[int]:
     """mel -> encoder -> TDT decode for one utterance.  audio: (N,) f32 on
     the weights' device, zero-padded past *n_valid* samples."""
-    mel, n_frames = log_mel_frontend(audio, n_valid, cfg)
-    encoded, _ = encode(params, cfg, mel[None], n_frames)
-    return tdt_greedy_decode(params, cfg, encoded, _sub_len_int(n_frames, cfg.sub_layers))
+    return transcribe_step_batch(params, cfg, audio[None], [n_valid])[0]
+
+
+def tdt_greedy_decode_batch(params: Params, cfg: ParakeetConfig, encoded, enc_len: list[int]) -> list[list[int]]:
+    """TDT greedy decode (NeMo ``GreedyTDTInfer`` semantics) for a batch of
+    utterances in one loop: it steps every lane while any lane is live, and
+    each lane's carry (frame, prediction state, tokens, counters) advances
+    only while that lane is live, as the JAX package's vmapped
+    ``while_loop`` does.  encoded: (B, T, D); enc_len: valid frames per lane
+    (0 for a padding row, which never steps).  One host read per step for
+    the whole batch."""
+    b, t_max = encoded.shape[0], encoded.shape[1]
+    max_steps = t_max * (cfg.max_symbols_per_frame + 1) + MAX_TOKENS
+    blank = cfg.blank_id
+    device = encoded.device
+    pred_out, state = pred_step(params, cfg, torch.full((b,), blank, dtype=torch.long, device=device),
+                                init_pred_state(cfg, b, device=device))
+    tokens: list[list[int]] = [[] for _ in range(b)]
+    t, syms, steps = [0] * b, [0] * b, [0] * b
+
+    def live(i: int) -> bool:
+        return t[i] < enc_len[i] and len(tokens[i]) < MAX_TOKENS and steps[i] < max_steps
+
+    while any(live(i) for i in range(b)):
+        lanes = [live(i) for i in range(b)]
+        enc_t = torch.stack([encoded[i, min(t[i], t_max - 1)] for i in range(b)])
+        token_logits, dur_logits = joint(params, cfg, enc_t, pred_out)
+        tok_dev = token_logits.argmax(-1)
+        tok, dur = torch.stack([tok_dev, dur_logits.argmax(-1)]).tolist()
+        emit = [lanes[i] and tok[i] != blank for i in range(b)]
+        if all(emit):
+            pred_out, state = pred_step(params, cfg, tok_dev, state)
+        elif any(emit):
+            # emission lanes step the prediction LSTM; every other lane keeps its state
+            new_out, new_state = pred_step(params, cfg, tok_dev, state)
+            keep = torch.tensor(emit, device=device)
+            pred_out = torch.where(keep[:, None], new_out, pred_out)
+            state = PredState(torch.where(keep[None, :, None], new_state.h, state.h),
+                              torch.where(keep[None, :, None], new_state.c, state.c))
+        for i in range(b):
+            if not lanes[i]:
+                continue
+            # frame advance: a blank with duration 0 forces 1; an emission may
+            # stay on the frame (duration 0) at most max_symbols_per_frame times
+            advance = max(dur[i], 1) if not emit[i] else dur[i]
+            if emit[i]:
+                tokens[i].append(tok[i])
+                syms[i] += 1
+                if syms[i] >= cfg.max_symbols_per_frame:
+                    advance = max(advance, 1)
+            if advance > 0:
+                syms[i] = 0
+            t[i] += advance
+            steps[i] += 1
+    return tokens
+
+
+def transcribe_step_batch(params: Params, cfg: ParakeetConfig, audio: torch.Tensor,
+                          n_valid: list[int]) -> list[list[int]]:
+    """Cross-session batched transcribe: mel -> encoder -> TDT decode for a
+    batch of same-bucket utterances.  audio: (B, N) f32 on the weights'
+    device, zero-padded rows; n_valid: valid samples per row.  Returns each
+    row's token ids.  Padding rows (``n_valid == 0``) stay invisible: their
+    frames are masked in the frontend and encoder, and their decode never
+    steps."""
+    mels, frames = zip(*(log_mel_frontend(audio[i], int(n_valid[i]), cfg) for i in range(audio.shape[0])))
+    encoded, _ = encode(params, cfg, torch.stack(mels), torch.tensor(frames, device=audio.device))
+    return tdt_greedy_decode_batch(params, cfg, encoded, [_sub_len_int(f, cfg.sub_layers) for f in frames])
 
 
 def transcribe_tokens(params: Params, cfg: ParakeetConfig, audio, n_valid: int | None = None,

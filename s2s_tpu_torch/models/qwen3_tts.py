@@ -9,9 +9,11 @@ JAX tree.  Per audio chunk the talker steps, code-predictor expansions and
 the vocoder run without a host sync; the chunk's audio and EOS flags are
 read back once, as in the JAX package's fused chunk program.
 
-Not ported yet (ROADMAP): the cross-session batched and tail programs, the
-one-shot ``synthesize`` program, voice cloning from reference audio, and the
-checkpoint converters.
+The cross-session batched talker programs that the serving scheduler
+dispatches are the tail programs (``*_tail`` below), which update the batched
+state in place (:mod:`s2s_tpu_torch.parallel.batched_decode`).  Not ported
+yet (ROADMAP): the legacy batched programs, the one-shot ``synthesize``
+program, voice cloning from reference audio, and the checkpoint converters.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from s2s_tpu_torch.models.common import (
 )
 from s2s_tpu_torch.models.decoder_lm import DecoderLMConfig, DecodeState, normal
 from s2s_tpu_torch.ops.quant import _MIN_SIZE, check_mode, quantize_tree
+from s2s_tpu_torch.parallel import batched_decode as bd
 
 logger = logging.getLogger(__name__)
 
@@ -423,6 +426,103 @@ def decode_chunk_audio(params: Params, cfg: Qwen3TTSConfig, state: TalkerState, 
     return wav[0, start:], torch.stack(flags), state, next_context
 
 
+# ── cross-session batched tail programs (slots share talker/cp/vocoder) ──
+
+
+def prompt_embeds(params: Params, cfg: Qwen3TTSConfig, text_tokens, speaker_vec):
+    """[speaker, text...] prompt embeddings (1, 1 + T, D) and the prompt
+    length as a 0-dim device tensor.  text_tokens: (1, T)."""
+    text_emb = params["text_embed"][text_tokens.long()]
+    prompt = torch.cat([speaker_vec[:, None, :].to(text_emb.dtype), text_emb], dim=1)
+    return prompt, (text_tokens > 0).sum(dim=1)[0] + 1
+
+
+def prefill_tts_slot(params: Params, cfg: Qwen3TTSConfig, text_tokens, speaker_vec, state, slot: int):
+    """Prefill one slot of the batched talker state in place; returns (the
+    codec BOS embedding (D,) for the slot's first frame, state)."""
+    prompt, prompt_len = prompt_embeds(params, cfg, text_tokens, speaker_vec)
+    state = bd.prefill_slot_embeds(params["talker"], cfg.lm, prompt, prompt_len, state, slot)
+    return params["talker"]["embed"][cfg.codec_bos_id], state
+
+
+def _frame_step_multi_tail(params: Params, cfg: Qwen3TTSConfig, embeds, kc, vc, pos0, tk, tv,
+                           n_act, active, i: int):
+    """One codec frame for every row against frozen caches + the tail.
+    Returns (codes (B, n_q), eos (B,), next embeds (B, D), tk, tv)."""
+    hidden, tk, tv = bd.tail_hidden_step(params["talker"], cfg.lm, embeds, kc, vc, pos0, tk, tv,
+                                         n_act, active, i)
+    normed = rms_norm(hidden, params["talker"]["final_norm"], cfg.lm.rms_eps)
+    logits = normed.float() @ params["codec_head"].float()
+    code0 = torch.argmax(logits, dim=-1).to(torch.int32)
+    eos = code0 == cfg.codec_eos_id
+    codes, emb_sum = _cp_expand_frame(params, cfg, hidden, torch.clamp(code0, 0, cfg.codebook_size - 1))
+    next_embeds = torch.where(active[:, None], emb_sum + params["pad_embed"][None, :], embeds)
+    return codes, eos, next_embeds, tk, tv
+
+
+def decode_chunk_audio_tail(params: Params, cfg: Qwen3TTSConfig, embeds, state, contexts,
+                            n_frames: int, active):
+    """*n_frames* codec frames for every row plus Code2Wav, with one cache
+    write per chunk.  embeds: (B, D); contexts: (B, C, n_q) trailing frames of
+    each row's previous chunk; active: (B,) bool.  Returns (audio (B, T'),
+    eos (n, B), next embeds, state, next contexts)."""
+    b = embeds.shape[0]
+    kc, vc, pos0 = state.caches.k, state.caches.v, state.pos
+    tk, tv = bd.init_tail(cfg.lm, b, n_frames, embeds.device)
+    n_act = torch.zeros((b,), dtype=torch.int32, device=embeds.device)
+    frames, flags = [], []
+    for i in range(n_frames):
+        codes, eos, embeds, tk, tv = _frame_step_multi_tail(params, cfg, embeds, kc, vc, pos0, tk, tv,
+                                                            n_act, active, i)
+        frames.append(codes)
+        flags.append(eos)
+        n_act = n_act + active.to(torch.int32)
+    state = bd.blend_tail_into_state(state, tk, tv, n_act)
+    full = torch.cat([contexts, torch.stack(frames, dim=1)], dim=1)  # (B, C + n, n_q)
+    wav = code2wav(params["c2w"], cfg.c2w, full.transpose(1, 2))
+    start = max(0, contexts.shape[1] * cfg.upsample - c2w_deficit(cfg.c2w))
+    next_contexts = full[:, full.shape[1] - contexts.shape[1]:]
+    return wav[:, start:], torch.stack(flags), embeds, state, next_contexts
+
+
+def decode_chunk_audio_slot_tail(params: Params, cfg: Qwen3TTSConfig, embed, state, context,
+                                 n_frames: int, slot: int):
+    """Priority lane: *n_frames* frames + vocode for ONE slot at batch-1
+    cost, on views of its row.  embed: (D,); context: (C, n_q).  Returns
+    (audio (T',), eos (n,), next embed (D,), state, next context)."""
+    active = torch.ones((1,), dtype=torch.bool, device=embed.device)
+    audio, eos, emb, _, ctx = decode_chunk_audio_tail(params, cfg, embed[None], bd._slot_row(state, slot),
+                                                      context[None], n_frames, active)
+    return audio[0], eos[:, 0], emb[0], state, ctx[0]
+
+
+def prefill_and_first_chunk_slot_tail(params: Params, cfg: Qwen3TTSConfig, text_tokens, speaker_vec,
+                                      state, contexts_all, n_frames: int, slot: int):
+    """Fused prefill + first ramp chunk for one slot (prompt ingest and the
+    first audible frames in one dispatch); the slot's context is reset and
+    then set in place.  Returns (audio, eos, next embed, state, contexts_all)."""
+    bos, state = prefill_tts_slot(params, cfg, text_tokens, speaker_vec, state, slot)
+    ctx0 = torch.zeros_like(contexts_all[0])
+    audio, eos, emb, state, ctx = decode_chunk_audio_slot_tail(params, cfg, bos, state, ctx0, n_frames, slot)
+    contexts_all[slot] = ctx
+    return audio, eos, emb, state, contexts_all
+
+
+def decode_chunk_audio_gathered_tail(params: Params, cfg: Qwen3TTSConfig, embeds_all, state,
+                                     contexts_all, n_frames: int, slot_ids):
+    """Steady lane over a compact gathered batch (``slot_ids`` (W,), padded
+    by repeating a valid id).  Returns (audio (W, T'), eos (n, W),
+    embeds_all, state, contexts_all), the last three updated in place."""
+    rows = bd._gather_rows(state, slot_ids)
+    active = torch.ones(slot_ids.shape, dtype=torch.bool, device=embeds_all.device)
+    audio, eos, emb, rows, ctx = decode_chunk_audio_tail(params, cfg, embeds_all[slot_ids], rows,
+                                                         contexts_all[slot_ids], n_frames, active)
+    bd._scatter_rows(state, slot_ids, rows)
+    embeds_all[slot_ids] = emb
+    contexts_all[slot_ids] = ctx
+    return audio, eos, embeds_all, state, contexts_all
+
+
 def load_speaker_file(path: str, device: torch.device | str = "cpu") -> torch.Tensor:
     """A precomputed speaker embedding (.npy/.npz) as a (1, D) f32 tensor."""
     arr = np.load(path)
@@ -473,8 +573,14 @@ class Qwen3TTS:
         return SAMPLE_RATE
 
     def _encode_text(self, text: str, bucket: int | None = None) -> tuple[torch.Tensor, int]:
-        """Text -> padded (1, bucket) token ids on the device + valid length
-        (tokenizer ids, or a clamped UTF-8 byte fallback without one)."""
+        """Text -> padded (1, bucket) token ids on the device + valid length."""
+        arr, n = self.encode_text_host(text, bucket)
+        return torch.from_numpy(arr).to(self.device), n
+
+    def encode_text_host(self, text: str, bucket: int | None = None) -> tuple[np.ndarray, int]:
+        """Text -> padded (1, bucket) int32 token ids on the host + valid length
+        (tokenizer ids, or a clamped UTF-8 byte fallback without one); the
+        batched engine takes host ids."""
         bucket = bucket or min(256, self.cfg.lm.max_seq_len // 2 - 1)
         if self.tokenizer is not None:
             ids = [i for i in self.tokenizer.encode(text) if 0 <= i < self.cfg.text_vocab][:bucket]
@@ -483,7 +589,7 @@ class Qwen3TTS:
             ids = [min(self.cfg.text_vocab - 1, max(1, b)) for b in text.encode("utf-8")][:bucket]
         arr = np.zeros((1, bucket), np.int32)
         arr[0, : len(ids)] = ids
-        return torch.from_numpy(arr).to(self.device), len(ids)
+        return arr, len(ids)
 
     def _cache_len(self, prompt_bucket: int, max_new: int) -> int:
         need = prompt_bucket + 1 + max_new

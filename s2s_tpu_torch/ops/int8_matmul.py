@@ -16,7 +16,6 @@ header says what bounds it and how the design answers that).
 from __future__ import annotations
 
 import functools
-import threading
 
 import torch
 
@@ -107,10 +106,8 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.
     if err != 0:
         raise RuntimeError(f"int8_matmul kernel launch failed: cudaError {err} "
                            f"(B={b}, K={k}, N={n}, splits={splits})")
-    with _count_lock:  # handler threads may launch concurrently
-        int8_matmul.launches += 1
+    _build.count_launch(int8_matmul)
     return out
 
 
 int8_matmul.launches = 0
-_count_lock = threading.Lock()

@@ -62,9 +62,9 @@ def quantized_linear(x: torch.Tensor, qw: QuantWeight, b: torch.Tensor | None = 
 _MIN_SIZE = 1 << 16
 
 _NOT_PORTED = {
-    "int8-dyn": "ROADMAP queue 2 item 4 (int8_matmul_dyn, W8A8 dynamic)",
-    "int4": "ROADMAP queue 2 item 5 (int4_matmul, packed int4)",
-    "int8+cp4": "ROADMAP queue 2 item 5 (int4_matmul, packed int4 code predictor)",
+    "int8-dyn": "ROADMAP queue 2 item 3 (int8_matmul_dyn, W8A8 dynamic)",
+    "int4": "ROADMAP queue 2 item 4 (int4_matmul, packed int4)",
+    "int8+cp4": "ROADMAP queue 2 item 4 (int4_matmul, packed int4 code predictor)",
 }
 
 

@@ -3,8 +3,10 @@
 ``s2s_tpu/stt/parakeet_handler.py``).
 
 The gating, progressive streaming, duration buckets and language detection
-are inherited unchanged.  The cross-session batched service
-(``batch_service``) is ROADMAP queue 1 item 1 and is refused here.
+are inherited unchanged.  With a cross-session batched service
+(``batch_service``, :class:`s2s_tpu_torch.runtime.batcher.BatchedParakeetSTT`)
+the handler uses the service's shared weights and submits its windows there,
+where concurrent sessions' windows coalesce into one batch.
 """
 
 from __future__ import annotations
@@ -36,17 +38,15 @@ class ParakeetSTTHandler(_JaxParakeetSTTHandler):
     """Same stage contract as the JAX handler; the port's conformer + TDT."""
 
     def setup(self, device: torch.device | str = "cpu", **kwargs: Any) -> None:
-        if kwargs.get("batch_service") is not None:
-            raise NotImplementedError(
-                "the cross-session batched Parakeet service is not ported to s2s_tpu_torch yet "
-                "(ROADMAP queue 1 item 1: BatchedParakeetSTT)"
-            )
         self.device = torch.device(device)
         super().setup(**kwargs)
 
     def _build_jax_transcriber(self, model_size, params, tokenizer, max_new_tokens):
-        cfg = config_for(model_size)
-        if params is None:
+        service = self._batch_service
+        cfg = service.cfg if service is not None else config_for(model_size)
+        if service is not None:
+            params = service.params  # one shared weight set across units
+        elif params is None:
             logger.warning("ParakeetSTTHandler: random-init weights (no checkpoint provided)")
             gen = torch.Generator(device=self.device).manual_seed(0)
             params = parakeet.init_params(cfg, gen, self.device)
@@ -60,7 +60,10 @@ class ParakeetSTTHandler(_JaxParakeetSTTHandler):
             padded = np.zeros(target, np.float32)
             n_valid = min(len(audio), target)
             padded[:n_valid] = audio[:target]
-            tokens = parakeet.transcribe_tokens(params, cfg, padded, n_valid, device=self.device)
+            if service is not None:
+                tokens = service.transcribe(padded, n_valid)
+            else:
+                tokens = parakeet.transcribe_tokens(params, cfg, padded, n_valid, device=self.device)
             if self._tokenizer is not None:
                 text = self._tokenizer.decode(tokens).strip()
             else:

@@ -2,9 +2,12 @@
 
 - A tiny serve built by ``s2s_tpu_torch.cli`` with ``--device cpu`` answers
   one WebSocket text turn with audio deltas and ``response.done``.
-- Every ``s2s_tpu_torch`` module imports, and the tiny pipeline builds, in a
+- A tiny batched serve (two pipeline units sharing the batched LM, TTS and
+  Parakeet engines, with a small TTS slot cache) answers two concurrent
+  WebSocket text turns, each with audio deltas and ``response.done``.
+- Every ``s2s_tpu_torch`` module imports, and both tiny pipelines build, in a
   process where importing ``jax`` fails.
-- A batched engine flag raises at build time instead of degrading.
+- ``--model_parallel`` above 1 raises at build time instead of degrading.
 - The slice's stages against the JAX package's handlers on the same tiny
   weights: the LLM streams the same text, the STT transcribes the same tokens
   (the TTS stream is held in ``test_torch_port_qwen3_tts.py``).
@@ -31,6 +34,18 @@ TINY_FLAGS = [
     "--tts", "qwen3", "--tts_model_size", "tiny", "--tts_batched_slots", "1",
     "--tts_quantize", "int8", "--tts_streaming_chunk_size", "3",
     "--num_pipelines", "1",
+]
+
+
+def _with(flags: list[str], **values) -> list[str]:
+    out = list(flags)
+    for name, value in values.items():
+        out[out.index(f"--{name}") + 1] = str(value)
+    return out
+
+
+BATCHED_FLAGS = _with(TINY_FLAGS, num_pipelines=2, llm_batched_slots=2, tts_batched_slots=2) + [
+    "--tts_batched_max_t", "64", "--tts_context_frames", "8", "--warmup_engines", "true",
 ]
 
 
@@ -75,15 +90,46 @@ def test_tiny_cpu_serve_answers_a_text_turn_with_audio():
     assert done["type"] == "response.done" and done["response"]["status"] == "completed", done
 
 
+def test_tiny_batched_cpu_serve_answers_two_concurrent_text_turns():
+    """Two sessions at once through the registry-built batched engines."""
+    from s2s_tpu_torch import cli
+    from s2s_tpu_torch.registry import GLOBAL_MODEL_CACHE
+
+    stop = threading.Event()
+    manager, server, _ = cli.build_from_argv(["--device", "cpu", *BATCHED_FLAGS], stop)
+    manager.start()
+    try:
+        assert server.started.wait(30)
+        url = f"ws://127.0.0.1:{server.bound_port}/v1/realtime"
+
+        async def both():
+            return await asyncio.gather(_text_turn(url, "Hello there", 120), _text_turn(url, "How are you", 120))
+
+        results = asyncio.run(both())
+    finally:
+        stop.set()
+        manager.stop()
+        GLOBAL_MODEL_CACHE.clear()
+    for events in results:
+        types = [e["type"] for e in events]
+        assert types[0] == "session.created", types
+        deltas = [e for e in events if e["type"] == "response.output_audio.delta"]
+        assert deltas and sum(len(base64.b64decode(e["delta"])) for e in deltas) > 0, types
+        assert events[-1]["type"] == "response.done" and events[-1]["response"]["status"] == "completed", types
+
+
 _NO_JAX = """
-import importlib, pkgutil, sys, threading
+import importlib, json, pkgutil, sys, threading
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
 import s2s_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(s2s_tpu_torch.__path__, "s2s_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
 from s2s_tpu_torch import cli
-manager, server, _ = cli.build_from_argv(["--device", "cpu", *sys.argv[1:]], threading.Event())
+from s2s_tpu_torch.registry import GLOBAL_MODEL_CACHE
+for flags in json.loads(sys.argv[1]):
+    manager, server, _ = cli.build_from_argv(["--device", "cpu", *flags], threading.Event())
+    GLOBAL_MODEL_CACHE.clear()
 assert not any(k == "jax" or k.startswith("jax.") for k, v in sys.modules.items() if v is not None)
 print("OK", len(names))
 """
@@ -91,20 +137,17 @@ print("OK", len(names))
 
 def test_port_imports_and_builds_without_jax():
     env = dict(os.environ, PYTHONPATH=ROOT)
-    proc = subprocess.run([sys.executable, "-c", _NO_JAX, *TINY_FLAGS], cwd=ROOT, env=env,
-                          capture_output=True, text=True, timeout=300)
+    proc = subprocess.run([sys.executable, "-c", _NO_JAX, json.dumps([TINY_FLAGS, BATCHED_FLAGS])], cwd=ROOT,
+                          env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.startswith("OK"), proc.stdout
 
 
-@pytest.mark.parametrize("flag", ["--llm_batched_slots", "--tts_batched_slots", "--num_pipelines"])
-def test_batched_flags_raise_at_build_time(flag):
+def test_model_parallel_raises_at_build_time():
     from s2s_tpu_torch import cli
 
-    argv = list(TINY_FLAGS)
-    argv[argv.index(flag) + 1] = "2"
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        cli.build_from_argv(["--device", "cpu", *argv], threading.Event())
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
+        cli.build_from_argv(["--device", "cpu", *BATCHED_FLAGS, "--model_parallel", "2"], threading.Event())
 
 
 def test_unported_options_raise():
