@@ -1,9 +1,9 @@
 """Pipeline builder of the port (after ``s2s_tpu/builder.py``).
 
-``s2s_tpu/builder.py`` binds to ``s2s_tpu.registry``'s JAX factories, so the
-port builds its units here over the same host pieces: ``PipelineUnit``,
-``RealtimeService``, ``RealtimeServer``, the VAD handler, the transcription
-notifier and the LM output processor.  ``--num_pipelines N`` builds N units
+Builds the port's units over its own copies of the host pieces
+(``PipelineUnit``, ``RealtimeService``, ``RealtimeServer``, the VAD handler,
+the transcription notifier and the LM output processor) and the port's
+registry.  ``--num_pipelines N`` builds N units
 behind one server; the registry shares one weight set and one batched engine
 per model among them.  Options that need an unported piece raise at build
 time and name their ROADMAP item.
@@ -18,20 +18,20 @@ from typing import Any
 
 import torch
 
-from s2s_tpu.arguments import ParsedArguments
-from s2s_tpu.llm.output_processor import LMOutputProcessor
-from s2s_tpu.pipeline.control import CancelScope
-from s2s_tpu.pipeline.log_context import install_pipeline_log_filter
-from s2s_tpu.pipeline.turns import SpeculativeTurnTracker
-from s2s_tpu.realtime.pipeline_unit import PipelineUnit
-from s2s_tpu.realtime.server import RealtimeServer
-from s2s_tpu.realtime.service import RealtimeService
-from s2s_tpu.runtime.device_scheduler import GLOBAL_SCHEDULER
-from s2s_tpu.runtime.thread_manager import ThreadManager
-from s2s_tpu.stt.notifier import TranscriptionNotifier
-from s2s_tpu.vad.energy import EnergyVAD
-from s2s_tpu.vad.handler import VADHandler
-from s2s_tpu_torch.registry import GLOBAL_MODEL_CACHE, TorchHandlerContext, get_backend
+from s2s_tpu_torch.arguments import ParsedArguments
+from s2s_tpu_torch.llm.output_processor import LMOutputProcessor
+from s2s_tpu_torch.pipeline.control import CancelScope
+from s2s_tpu_torch.pipeline.log_context import install_pipeline_log_filter
+from s2s_tpu_torch.pipeline.turns import SpeculativeTurnTracker
+from s2s_tpu_torch.realtime.pipeline_unit import PipelineUnit
+from s2s_tpu_torch.realtime.server import RealtimeServer
+from s2s_tpu_torch.realtime.service import RealtimeService
+from s2s_tpu_torch.registry import GLOBAL_MODEL_CACHE, HandlerContext, get_backend
+from s2s_tpu_torch.runtime.device_scheduler import GLOBAL_SCHEDULER
+from s2s_tpu_torch.runtime.thread_manager import ThreadManager
+from s2s_tpu_torch.stt.notifier import TranscriptionNotifier
+from s2s_tpu_torch.vad.energy import EnergyVAD
+from s2s_tpu_torch.vad.handler import VADHandler
 
 logger = logging.getLogger(__name__)
 
@@ -73,8 +73,8 @@ def build_pipeline_unit(index: int, args: ParsedArguments, stop_event: threading
     cancel_scope = CancelScope()
     tracker = SpeculativeTurnTracker()
 
-    def ctx(queue_in: Queue, queue_out: Queue) -> TorchHandlerContext:
-        return TorchHandlerContext(
+    def ctx(queue_in: Queue, queue_out: Queue) -> HandlerContext:
+        return HandlerContext(
             stop_event=stop_event, queue_in=queue_in, queue_out=queue_out,
             text_output_queue=text_output_queue, should_listen=should_listen,
             cancel_scope=cancel_scope, speculative_turns=tracker,

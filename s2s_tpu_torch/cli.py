@@ -1,8 +1,9 @@
 """Console entry point of the port: ``s2s-tpu-torch serve`` /
 ``python -m s2s_tpu_torch.cli serve [--device {cuda,cpu}] <s2s_tpu flags>``.
 
-The flags are the JAX package's (``s2s_tpu.arguments``), so the single-session
-form of ``scripts/run_soak.py``'s command line works verbatim.  ``--device``
+The flags are the JAX package's (``s2s_tpu_torch.arguments`` is its copy of
+``s2s_tpu/arguments.py``), so ``scripts/run_soak.py``'s command lines work
+verbatim.  ``--device``
 (default ``cuda``) is stripped before they are parsed; ``cuda`` without a
 card raises, and ``cpu`` exists for the tests.
 """
@@ -48,7 +49,7 @@ def resolve_device(name: str) -> torch.device:
 def build_from_argv(argv: list[str], stop_event: threading.Event):
     """Parse *argv* (``--device`` included) and build the pipeline:
     returns (thread manager, server, parsed args), not started."""
-    from s2s_tpu.arguments import parse_arguments
+    from s2s_tpu_torch.arguments import parse_arguments
     from s2s_tpu_torch.builder import build_pipeline
 
     device_name, rest = split_device(argv)

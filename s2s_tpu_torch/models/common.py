@@ -6,8 +6,8 @@ Plain functions on tensors, with the JAX package's layouts and numerics:
   rope, softmax and logits run in f32;
 - rope rotates interleaved pairs ``(x[..., 0::2], x[..., 1::2])``, the JAX
   layout, not Hugging Face's half split;
-- weights are (in, out) matrices; ``linear`` dispatches on
-  :class:`~s2s_tpu_torch.ops.quant.QuantWeight`.
+- weights are (in, out) matrices; ``linear`` dispatches on the quantized
+  weight types of :mod:`s2s_tpu_torch.ops.quant`.
 """
 
 from __future__ import annotations
@@ -17,7 +17,15 @@ from typing import Any, NamedTuple
 
 import torch
 
-from s2s_tpu_torch.ops.quant import QuantWeight, quantized_linear
+from s2s_tpu_torch.ops.quant import (
+    QUANT_TYPES,
+    DynQuantWeight,
+    Quant4Weight,
+    QuantWeight,
+    quantized_linear,
+    quantized_linear4,
+    quantized_linear_dyn,
+)
 
 Params = dict[str, Any]
 
@@ -101,10 +109,15 @@ def length_mask(tk: int, valid_len: int, device: torch.device | str = "cpu") -> 
 
 
 def linear(x: torch.Tensor, w, b: torch.Tensor | None = None) -> torch.Tensor:
-    """x @ w (+ b) with f32 accumulation, output in x's dtype.  An int8
-    :class:`QuantWeight` goes through :func:`quantized_linear`."""
+    """x @ w (+ b) with f32 accumulation, output in x's dtype.  A quantized
+    weight goes through its path: :class:`QuantWeight` W8A16,
+    :class:`DynQuantWeight` W8A8 dynamic, :class:`Quant4Weight` packed int4."""
     if isinstance(w, QuantWeight):
         return quantized_linear(x, w, b)
+    if isinstance(w, DynQuantWeight):
+        return quantized_linear_dyn(x, w, b)
+    if isinstance(w, Quant4Weight):
+        return quantized_linear4(x, w, b)
     out = torch.matmul(x, w.to(x.dtype))
     return out + b if b is not None else out
 
@@ -115,11 +128,11 @@ def swiglu(x: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
 
 def layer_slice(layers: Params, i: int) -> Params:
     """Layer *i* of a stacked layer tree: every tensor indexed on its leading
-    axis, a stacked QuantWeight sliced to its 2-D (in, out) form."""
+    axis, a stacked quantized weight sliced to its 2-D form."""
     out: Params = {}
     for name, leaf in layers.items():
-        if isinstance(leaf, QuantWeight):
-            out[name] = QuantWeight(leaf.q[i], leaf.scale[i])
+        if isinstance(leaf, QUANT_TYPES):
+            out[name] = type(leaf)(*(part[i] for part in leaf))
         elif isinstance(leaf, dict):
             out[name] = layer_slice(leaf, i)
         else:
@@ -130,8 +143,8 @@ def layer_slice(layers: Params, i: int) -> Params:
 def n_stacked(layers: Params) -> int:
     """Number of layers in a stacked layer tree."""
     for leaf in layers.values():
-        if isinstance(leaf, QuantWeight):
-            return leaf.q.shape[0]
+        if isinstance(leaf, QUANT_TYPES):
+            return leaf.scale.shape[0]
         if isinstance(leaf, dict):
             return n_stacked(leaf)
         return leaf.shape[0]

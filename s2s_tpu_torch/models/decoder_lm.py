@@ -34,7 +34,7 @@ from s2s_tpu_torch.models.common import (
     rope_frequencies,
     swiglu,
 )
-from s2s_tpu_torch.ops.quant import QuantWeight
+from s2s_tpu_torch.ops.quant import QUANT_TYPES
 
 
 @dataclass(frozen=True)
@@ -174,7 +174,7 @@ def _run_blocks(x, params: Params, cfg: DecoderLMConfig, caches: KVCache | None,
 def _logits(x, params: Params, cfg: DecoderLMConfig) -> torch.Tensor:
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    if isinstance(head, QuantWeight):
+    if isinstance(head, QUANT_TYPES):
         return linear(x, head).float()
     return torch.matmul(x, head.to(x.dtype)).float()
 

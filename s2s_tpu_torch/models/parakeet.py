@@ -21,9 +21,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from s2s_tpu.ops.mel import mel_filter_bank
 from s2s_tpu_torch.models.common import Params, layer_norm, layer_slice, linear, n_stacked
 from s2s_tpu_torch.models.decoder_lm import normal
+from s2s_tpu_torch.ops.mel import mel_filter_bank
 
 LOG_ZERO_GUARD = 2.0 ** -24
 NORM_EPS = 1e-5

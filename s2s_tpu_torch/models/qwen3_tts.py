@@ -40,7 +40,7 @@ from s2s_tpu_torch.models.common import (
     rope_frequencies,
 )
 from s2s_tpu_torch.models.decoder_lm import DecoderLMConfig, DecodeState, normal
-from s2s_tpu_torch.ops.quant import _MIN_SIZE, check_mode, quantize_tree
+from s2s_tpu_torch.ops.quant import TTS_MODES, check_mode, quantize_tree
 from s2s_tpu_torch.parallel import batched_decode as bd
 
 logger = logging.getLogger(__name__)
@@ -336,14 +336,20 @@ def code2wav(params: Params, cfg: Code2WavConfig, codes):
 # ---------------------------------------------------------------------------
 
 
-def quantize_params(params: Params, min_size: int | None = None) -> Params:
-    """int8 weight-only quantization of the decode-loop weights (talker and
-    code predictor); heads, embeddings and the vocoder stay exact."""
-    min_size = _MIN_SIZE if min_size is None else min_size
+def quantize_params(params: Params, min_size: int | None = None, talker_bits: int = 8, cp_bits: int = 8,
+                    act_quant: bool = False) -> Params:
+    """Quantization of the decode-loop weights (talker and code predictor),
+    each to int8 or packed int4, int8 leaves W8A8 with *act_quant*; heads,
+    embeddings and the vocoder stay exact."""
     out = dict(params)
-    out["talker"] = quantize_tree(params["talker"], min_size=min_size)
-    out["cp"] = quantize_tree(params["cp"], min_size=min_size)
+    out["talker"] = quantize_tree(params["talker"], min_size=min_size, bits=talker_bits, act_quant=act_quant)
+    out["cp"] = quantize_tree(params["cp"], min_size=min_size, bits=cp_bits, act_quant=act_quant)
     return out
+
+
+#: ``--tts_quantize`` mode -> (talker bits, code-predictor bits), the JAX
+#: package's table; ``int8-dyn`` is int8 with W8A8 activations
+_MODE_BITS = {"int8": (8, 8), "int8-dyn": (8, 8), "int8+cp4": (8, 4), "int4": (4, 4)}
 
 
 class TalkerState(NamedTuple):
@@ -557,13 +563,19 @@ class Qwen3TTS:
         self.cfg = cfg or Qwen3TTSConfig()
         self.device = torch.device(device)
         self.tokenizer = tokenizer
-        if int8:
-            check_mode(int8 if isinstance(int8, str) else "int8")
+        mode = (int8 if isinstance(int8, str) else "int8") if int8 else None
+        check_mode(mode, TTS_MODES)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = init_params(self.cfg, gen, self.device)
-        # quantized on the device the weights live on
-        self.params = quantize_params(params) if int8 else params
+        # quantization modes (--tts_quantize): True/"int8" = talker and code
+        # predictor int8 W8A16; "int8-dyn" = W8A8 dynamic; "int8+cp4" =
+        # talker int8, code predictor packed int4; "int4" = both int4.
+        # Quantized on the device the weights live on.
+        if mode:
+            talker_bits, cp_bits = _MODE_BITS[mode]
+            params = quantize_params(params, talker_bits=talker_bits, cp_bits=cp_bits, act_quant=mode == "int8-dyn")
+        self.params = params
         self.chunk_frames = chunk_frames
         self.context_frames = context_frames
         self.ramp_chunks = tuple(min(c, chunk_frames) for c in ramp_chunks)

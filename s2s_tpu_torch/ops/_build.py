@@ -105,6 +105,10 @@ def load() -> ctypes.CDLL:
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             lib.s2s_int8_matmul.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
             lib.s2s_int8_matmul.restype = i32
+            lib.s2s_int8_matmul_dyn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+            lib.s2s_int8_matmul_dyn.restype = i32
+            lib.s2s_int4_matmul.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+            lib.s2s_int4_matmul.restype = i32
             lib.s2s_decode_attention.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
                                                  i32, i32, i32, i32, i32, i32, i32,
                                                  ctypes.c_float, ptr]

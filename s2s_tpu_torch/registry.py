@@ -1,9 +1,10 @@
 """Backend registry of the port (after ``s2s_tpu/registry.py``).
 
-Reuses the JAX package's jax-free registry types (``BackendSpec``,
-``HandlerContext``, ``ModelCache``) and checkpoint loader, and registers the
-ported backends under the SAME names, so the JAX package's flags work
-verbatim: ``parakeet-tdt``, ``local-jax`` and ``qwen3``.
+The registry types (``BackendSpec``, ``HandlerContext``, ``ModelCache``),
+the checkpoint loader and the backend aliases are the JAX package's, copied;
+``HandlerContext`` also carries the device every model of the port lives on.
+The ported backends register under the SAME names, so the JAX package's
+flags work verbatim: ``parakeet-tdt``, ``local-jax`` and ``qwen3``.
 
 With several pipeline units (``--num_pipelines``) or batched slots
 (``--llm_batched_slots``, ``--tts_batched_slots``) above 1, every unit shares
@@ -17,32 +18,96 @@ STT runs.
 from __future__ import annotations
 
 import logging
-from dataclasses import dataclass
+import threading
+from dataclasses import dataclass, field
+from queue import Queue
+from typing import Any, Callable, Type
 
 import torch
 
-from s2s_tpu.arguments import LocalLLMArgs, ParakeetSTTArgs, Qwen3TTSArgs
-from s2s_tpu.registry import BackendSpec, HandlerContext, ModelCache, _load_checkpoint, _load_llm_tokenizer
 from s2s_tpu_torch import weights
-from s2s_tpu_torch.ops.quant import check_mode, quantize_tree
+from s2s_tpu_torch.ops.quant import LLM_MODES, TTS_MODES, check_mode, quantize_mode
 
 logger = logging.getLogger(__name__)
 
-GLOBAL_MODEL_CACHE = ModelCache()
 
 @dataclass(frozen=True)
-class TorchHandlerContext(HandlerContext):
-    """HandlerContext plus the device every model of the port lives on."""
+class BackendCapabilities:
+    bypasses_transcription_notifier: bool = False
+    supports_audio_input: bool = False
+    supports_llm_proxy: bool = False
 
+
+@dataclass(frozen=True)
+class HandlerContext:
+    """Everything a handler factory may wire in."""
+
+    stop_event: Any
+    queue_in: Queue
+    queue_out: Queue
+    text_output_queue: Queue
+    should_listen: Any
+    cancel_scope: Any
+    speculative_turns: Any
+    device_scheduler: Any
+    model_cache: "ModelCache"
+    #: how many pipeline units share this process (the cross-session
+    #: batched services engage only when > 1)
+    n_units: int = 1
+    #: tensor-parallel width (--model_parallel); the builder refuses > 1
+    model_parallel: int = 1
+    #: the device every model of the port lives on
     device: torch.device = torch.device("cpu")
+
+
+@dataclass(frozen=True)
+class BackendSpec:
+    name: str
+    kind: str  # "stt" | "llm" | "tts"
+    config_type: Type
+    create_handler: Callable[[Any, HandlerContext], Any]
+    capabilities: BackendCapabilities = field(default_factory=BackendCapabilities)
+
+
+class ModelCache:
+    """Process-wide jitted-model cache keyed by (factory, config-key)."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._models: dict[tuple, Any] = {}
+
+    def get(self, key: tuple, factory: Callable[[], Any]) -> Any:
+        with self._lock:
+            if key not in self._models:
+                logger.info("Loading shared model %s", key)
+                self._models[key] = factory()
+            return self._models[key]
+
+    def clear(self) -> None:
+        """Drop every cached model/engine, shutting down engines that have a
+        shutdown() (tests; a serve process keeps the cache for its lifetime)."""
+        with self._lock:
+            values, self._models = list(self._models.values()), {}
+        for value in values:
+            engines = value if isinstance(value, tuple) else (value,)
+            for engine in engines:
+                stop = getattr(engine, "shutdown", None) or getattr(engine, "close", None)
+                if callable(stop):
+                    try:
+                        stop()
+                    except Exception:  # noqa: BLE001
+                        logger.exception("engine shutdown during cache clear failed")
+
+
+GLOBAL_MODEL_CACHE = ModelCache()
 
 
 def _global_gate():
     """The engines' shared priority gate, bridged into the device scheduler
     (its INTERACTIVE slot holds the gate, so steady chunks yield to a
     session's final STT)."""
-    from s2s_tpu.runtime.device_scheduler import GLOBAL_SCHEDULER
     from s2s_tpu_torch.parallel.session_scheduler import GLOBAL_PRIORITY_GATE
+    from s2s_tpu_torch.runtime.device_scheduler import GLOBAL_SCHEDULER
 
     GLOBAL_SCHEDULER.priority_gate = GLOBAL_PRIORITY_GATE
     return GLOBAL_PRIORITY_GATE
@@ -56,13 +121,13 @@ def _random_init(init, cfg, device: torch.device, what: str):
 # ── factories ────────────────────────────────────────────────────────
 
 
-def _make_parakeet_stt(config, ctx: TorchHandlerContext):
-    from s2s_tpu.stt.language_id import detect_language
+def _make_parakeet_stt(config, ctx: HandlerContext):
+    from s2s_tpu_torch.stt.language_id import detect_language
     from s2s_tpu_torch.stt.parakeet_handler import ParakeetSTTHandler, config_for
 
     tokenizer = None
     if config.tokenizer:
-        from s2s_tpu.stt.tokenizer import SentencePieceTokenizer
+        from s2s_tpu_torch.stt.tokenizer import SentencePieceTokenizer
 
         tokenizer = SentencePieceTokenizer.from_file(config.tokenizer)
     params = service = None
@@ -100,10 +165,18 @@ def _make_parakeet_stt(config, ctx: TorchHandlerContext):
     )
 
 
-def _make_local_llm(config, ctx: TorchHandlerContext):
+def _load_llm_tokenizer(path):
+    if not path:
+        return None
+    from s2s_tpu_torch.llm.bpe_tokenizer import BPETokenizer
+
+    return BPETokenizer(path)
+
+
+def _make_local_llm(config, ctx: HandlerContext):
     from s2s_tpu_torch.llm.local_backend import LocalTorchLLMHandler, lm_config
 
-    check_mode(config.quantize)
+    check_mode(config.quantize, LLM_MODES)
     tokenizer = _load_llm_tokenizer(config.tokenizer)
     params = shared_lm = None
     if config.batched_slots > 1:
@@ -117,8 +190,7 @@ def _make_local_llm(config, ctx: TorchHandlerContext):
             tree = _load_checkpoint(config.checkpoint)
             p = (weights.tree_to_torch(tree, ctx.device) if tree is not None
                  else _random_init(decoder_lm.init_params, cfg, ctx.device, "local-jax LLM"))
-            if config.quantize == "int8":
-                p = quantize_tree(p)
+            p = quantize_mode(p, config.quantize)
             engine = BatchedLMScheduler(
                 p, cfg, n_slots=config.batched_slots,
                 max_t=config.batched_max_t or min(cfg.max_seq_len, 2048),
@@ -134,11 +206,9 @@ def _make_local_llm(config, ctx: TorchHandlerContext):
     else:
         tree = _load_checkpoint(config.checkpoint)
         if tree is not None:
-            params = weights.tree_to_torch(tree, ctx.device)
             # as in the JAX package, the single-session LLM quantizes only
             # checkpoint weights; random init stays in bf16 (ROADMAP queue 3)
-            if config.quantize == "int8":
-                params = quantize_tree(params)
+            params = quantize_mode(weights.tree_to_torch(tree, ctx.device), config.quantize)
     return LocalTorchLLMHandler(
         ctx.stop_event, ctx.queue_in, ctx.queue_out,
         setup_kwargs=dict(
@@ -161,11 +231,11 @@ def _make_local_llm(config, ctx: TorchHandlerContext):
     )
 
 
-def _make_qwen3_tts(config, ctx: TorchHandlerContext):
+def _make_qwen3_tts(config, ctx: HandlerContext):
     from s2s_tpu_torch.models.qwen3_tts import Qwen3TTS, load_speaker_file
     from s2s_tpu_torch.tts.qwen3_handler import Qwen3TTSHandler, config_for
 
-    check_mode(config.quantize)
+    check_mode(config.quantize, TTS_MODES)
 
     def build():
         tree = _load_checkpoint(config.checkpoint)
@@ -218,7 +288,50 @@ def _make_qwen3_tts(config, ctx: TorchHandlerContext):
     )
 
 
+def _load_checkpoint(path: str | None):
+    """Load converted weights from an .npz/.msgpack file (None -> random init)."""
+    if not path:
+        return None
+    import numpy as np
+
+    if path.endswith(".npz"):
+        flat = dict(np.load(path, allow_pickle=False))
+        return unflatten_params(flat)
+    raise ValueError(f"Unsupported checkpoint format: {path}")
+
+
+def unflatten_params(flat: dict) -> dict:
+    """'a/b/0/c' -> nested dict/list pytree."""
+    root: dict = {}
+    for key, value in flat.items():
+        parts = key.split("/")
+        node = root
+        for i, part in enumerate(parts[:-1]):
+            nxt = parts[i + 1]
+            default: Any = [] if nxt.isdigit() else {}
+            if isinstance(node, list):
+                idx = int(part)
+                while len(node) <= idx:
+                    node.append(None)
+                if node[idx] is None:
+                    node[idx] = default
+                node = node[idx]
+            else:
+                node = node.setdefault(part, default)
+        last = parts[-1]
+        if isinstance(node, list):
+            idx = int(last)
+            while len(node) <= idx:
+                node.append(None)
+            node[idx] = value
+        else:
+            node[last] = value
+    return root
+
+
 # ── registries ───────────────────────────────────────────────────────
+
+from s2s_tpu_torch.arguments import LocalLLMArgs, ParakeetSTTArgs, Qwen3TTSArgs  # noqa: E402
 
 STT_BACKENDS: dict[str, BackendSpec] = {
     "parakeet-tdt": BackendSpec("parakeet-tdt", "stt", ParakeetSTTArgs, _make_parakeet_stt),
@@ -231,7 +344,33 @@ TTS_BACKENDS: dict[str, BackendSpec] = {
 }
 
 
+BACKEND_ALIASES: dict[str, dict[str, str]] = {
+    "stt": {
+        "faster-whisper": "whisper",
+        "whisper-mlx": "whisper",
+        "mlx-audio-whisper": "whisper",
+    },
+    "llm": {
+        "transformers": "local-jax",
+        "mlx-lm": "local-jax",
+    },
+    "tts": {},
+}
+
+
+def resolve_backend_alias(kind: str, name: str) -> str:
+    """Map a reference backend name onto the spec that serves its family."""
+    canon = BACKEND_ALIASES.get(kind, {}).get(name)
+    if canon is None:
+        return name
+    logger.info("%s backend %r is served by %r", kind.upper(), name, canon)
+    return canon
+
+
 def get_backend(kind: str, name: str) -> BackendSpec:
+    """The spec of a ported backend; an unported one raises and names the
+    ROADMAP queue (``s2s_tpu_torch.arguments`` calls this while it parses)."""
+    name = resolve_backend_alias(kind, name)
     registry = {"stt": STT_BACKENDS, "llm": LLM_BACKENDS, "tts": TTS_BACKENDS}[kind]
     if name not in registry:
         raise NotImplementedError(

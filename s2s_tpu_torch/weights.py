@@ -2,8 +2,9 @@
 
 Accepts what the JAX side produces or stores: nested dicts/lists of numpy
 arrays (or anything ``np.asarray`` reads, bf16 included), the JAX
-``QuantWeight`` named tuple, or an ``unflatten_params`` tree loaded from a
-converted ``.npz`` checkpoint.  Returns the same tree as torch tensors on a
+package's quantized weights (``QuantWeight``, ``DynQuantWeight``,
+``Quant4Weight``), or an ``unflatten_params`` tree loaded from a converted
+``.npz`` checkpoint.  Returns the same tree as torch tensors on a
 given device, with the two layout changes the port makes:
 
 - convolution weights stored by the JAX package as NTC/TIO ``(k, in/g, out)``
@@ -22,7 +23,9 @@ from typing import Any
 import numpy as np
 import torch
 
-from s2s_tpu_torch.ops.quant import QuantWeight
+from s2s_tpu_torch.ops.quant import QUANT_TYPES
+
+_QUANT_BY_NAME = {cls.__name__: cls for cls in QUANT_TYPES}
 
 
 def to_tensor(value: Any, device: torch.device | str) -> torch.Tensor:
@@ -35,14 +38,12 @@ def to_tensor(value: Any, device: torch.device | str) -> torch.Tensor:
 
 
 def tree_to_torch(tree: Any, device: torch.device | str) -> Any:
-    """Every array or tensor leaf -> tensor on *device*; a ``QuantWeight``
-    (the JAX package's or the port's) -> the port's :class:`QuantWeight`.
-    The other quantized types are not ported."""
-    kind = type(tree).__name__
-    if kind == "QuantWeight":
-        return QuantWeight(to_tensor(tree.q, device), to_tensor(tree.scale, device))
-    if kind in ("DynQuantWeight", "Quant4Weight"):
-        raise NotImplementedError(f"{kind} is not ported to s2s_tpu_torch (ROADMAP queue 2)")
+    """Every array or tensor leaf -> tensor on *device*; a quantized weight
+    (the JAX package's or the port's, matched by type name) -> the port's
+    type of that name, field by field."""
+    cls = _QUANT_BY_NAME.get(type(tree).__name__)
+    if cls is not None:
+        return cls(*(to_tensor(part, device) for part in tree))
     if isinstance(tree, dict):
         return {k: tree_to_torch(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

@@ -279,13 +279,16 @@ def test_llm_handler_speculation_and_prompt_fit_reach_the_port_engine():
     JAX handler's on the JAX engine with the same weights."""
     from queue import Queue
 
-    from s2s_tpu.llm.chat import make_user_message
+    from s2s_tpu.llm import chat as jchat
     from s2s_tpu.llm.local_backend import LocalJAXLLMHandler
     from s2s_tpu.parallel.session_scheduler import BatchedLMScheduler as JaxEngine
-    from s2s_tpu.pipeline.messages import GenerateResponseRequest, LLMResponseChunk, SpeculativeGenerateRequest
-    from s2s_tpu.realtime.config import RuntimeConfig
+    from s2s_tpu.pipeline import messages as jmsg
+    from s2s_tpu.realtime import config as jconfig
+    from s2s_tpu_torch.llm.chat import make_user_message
     from s2s_tpu_torch.llm.local_backend import LocalTorchLLMHandler
     from s2s_tpu_torch.parallel.session_scheduler import BatchedLMScheduler
+    from s2s_tpu_torch.pipeline.messages import GenerateResponseRequest, LLMResponseChunk, SpeculativeGenerateRequest
+    from s2s_tpu_torch.realtime.config import RuntimeConfig
 
     jcfg, jp, tcfg, tp = _lm(False, key=0)
     kw = dict(n_slots=2, max_t=64, eos_id=0, chunk_tokens=4)
@@ -296,15 +299,16 @@ def test_llm_handler_speculation_and_prompt_fit_reach_the_port_engine():
     th = LocalTorchLLMHandler(threading.Event(), Queue(), Queue(),
                               setup_kwargs=dict(params=tp, shared_lm=tengine, device="cpu", **common))
 
-    def reply(outs):
-        return "".join(o.text for o in outs if isinstance(o, LLMResponseChunk))
+    def reply(outs, chunk_type=LLMResponseChunk):
+        return "".join(o.text for o in outs if isinstance(o, chunk_type))
 
     try:
         head = list(range(1, 200))[: tcfg.max_seq_len - 8 - 1]  # the model-context cut comes first
         assert th._fit_prompt(list(range(1, 200)), 8) == head[-tengine.prompt_capacity(8):]
-        rc = RuntimeConfig()
-        rc.chat.add_item(make_user_message("hi"))
-        want = reply(jh.process(GenerateResponseRequest(runtime_config=rc)))
+        # each handler gets its own package's messages
+        jrc = jconfig.RuntimeConfig()
+        jrc.chat.add_item(jchat.make_user_message("hi"))
+        want = reply(jh.process(jmsg.GenerateResponseRequest(runtime_config=jrc)), jmsg.LLMResponseChunk)
 
         rc = RuntimeConfig()
         assert list(th.process(SpeculativeGenerateRequest(runtime_config=rc, text="hi", turn_id="t",

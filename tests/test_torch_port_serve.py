@@ -6,7 +6,7 @@
   Parakeet engines, with a small TTS slot cache) answers two concurrent
   WebSocket text turns, each with audio deltas and ``response.done``.
 - Every ``s2s_tpu_torch`` module imports, and both tiny pipelines build, in a
-  process where importing ``jax`` fails.
+  process where importing ``jax`` or the JAX package ``s2s_tpu`` fails.
 - ``--model_parallel`` above 1 raises at build time instead of degrading.
 - The slice's stages against the JAX package's handlers on the same tiny
   weights: the LLM streams the same text, the STT transcribes the same tokens
@@ -121,6 +121,7 @@ def test_tiny_batched_cpu_serve_answers_two_concurrent_text_turns():
 _NO_JAX = """
 import importlib, json, pkgutil, sys, threading
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
+sys.modules["s2s_tpu"] = None  # and so does any import of the JAX package
 import s2s_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(s2s_tpu_torch.__path__, "s2s_tpu_torch.")]
 for name in names:
@@ -130,7 +131,8 @@ from s2s_tpu_torch.registry import GLOBAL_MODEL_CACHE
 for flags in json.loads(sys.argv[1]):
     manager, server, _ = cli.build_from_argv(["--device", "cpu", *flags], threading.Event())
     GLOBAL_MODEL_CACHE.clear()
-assert not any(k == "jax" or k.startswith("jax.") for k, v in sys.modules.items() if v is not None)
+assert not any(k in ("jax", "s2s_tpu") or k.startswith(("jax.", "s2s_tpu.")) for k, v in sys.modules.items()
+               if v is not None)
 print("OK", len(names))
 """
 
