@@ -48,8 +48,32 @@ Phases, each printed on its own line:
    kernels' launches from the build (engine warm-up included) to the end of
    the round, with ``int8_matmul_dyn`` and ``int4_matmul`` each > 0.
 
-Phases 3, 4, 8, 9 and 10 run with TF32 off, so that f32 products are
-compared in full f32; the serves run with torch's defaults, as
+12. ``flash_attention`` against its plain version in bf16 at the distil-
+   large-v3 encoder's shapes (20 heads of 64 x every Whisper duration
+   bucket, 50-1500 positions), at Smart Turn's (6 heads x 400) and one
+   causal shape, within 2 bf16 ulps of max|plain|, with device times of
+   the kernel, the plain version and ``F.scaled_dot_product_attention``;
+13. ``log_mel`` (the log-mel kernel, then the torch log steps) against the
+   plain torch log-mel at 1, 8 and 30 s x 80 and 128 mels, within
+   ``LOG_MEL_ATOL`` on the log-mel output, with device times of both and of
+   ``torch.stft`` + power + filterbank + the same log steps; its bound counts
+   the function's own minimum (a real FFT per frame, audio in and log-mel
+   out), and the direct DFT's count stands beside it as
+   ``direct_dft_bound_ms``;
+14. tiny Whisper (``test_tiny`` at head dim 64, so the encoder takes the
+   flash kernel), Smart Turn's chain and the voice-clone speaker on the card
+   against the same code on the CPU;
+15. ``whisper_serve``: the single-session serve with energy VAD, Smart Turn
+   on and full-width distil-large-v3 Whisper (``WHISPER_FLAGS``), after the
+   earlier serves shut down: one text turn, then voice turns (``VOICE_TONES_HZ``,
+   up to the first one answered), each with a non-empty transcription; the
+   answered one must bring reply audio and ``response.done``; Smart Turn
+   predictions with none failed, and launches of both new kernels that
+   match the encodes (one flash launch per encoder layer, one log-mel per
+   encode).
+
+Phases 3, 4, 8, 9, 10, 12, 13 and 14 run with TF32 off, so that f32 products
+are compared in full f32; the serves run with torch's defaults, as
 ``s2s_tpu_torch.cli`` does.  Every kernel's line and the JSON line give its
 bound: the larger of the bytes it must move over 3.35 TB/s and its
 operations over the card's peak for their type.
@@ -65,6 +89,7 @@ import asyncio
 import base64
 import contextlib
 import json
+import logging
 import math
 import subprocess
 import sys
@@ -96,6 +121,39 @@ BATCHED_FLAGS = [
     "--stt_model_size", "0.6b", "--llm_model_size", "smollm2-1.7b", "--tts_model_size", "1.7b",
 ]
 SESSIONS = 4
+
+
+def _with(flags: list[str], **values) -> list[str]:
+    out = list(flags)
+    for name, value in values.items():
+        out[out.index(f"--{name}") + 1] = str(value)
+    return out
+
+
+#: the single-session serve with Whisper distil-large-v3 and Smart Turn on
+WHISPER_FLAGS = _with(FULL_FLAGS, stt="whisper", stt_model_size="distil-large-v3", vad_smart_turn="true")
+#: voice-turn tones of the Whisper serve, tried in order until one is
+#: answered: with random weights the transcript is a string of token ids, and
+#: the LLM's greedy reply to some of them is empty (EOS first), which the
+#: shared host code answers with no response at all; on an H100 the first
+#: three were each answered in a trial, 150, 180, 300 and 330 Hz were not
+VOICE_TONES_HZ = (440.0, 520.0, 260.0, 220.0)
+#: flash attention at the encoder shapes: (name, heads, positions, causal);
+#: distil-large-v3 (20 heads of 64) at every Whisper duration bucket
+#: (1, 2, 3, 5, 8, 12, 15, 30 s -> 50-1500 positions), Smart Turn (Whisper
+#: tiny's 6 heads over its 8 s window), and one causal shape
+FLASH_SHAPES = ([("whisper-distil-large-v3", 20, t, False) for t in (50, 100, 150, 250, 400, 600, 750, 1500)]
+                + [("smart-turn", 6, 400, False), ("causal", 20, 1500, True)])
+#: the flash shape in the JSON line: Smart Turn, run at every soft end of speech
+FLASH_HEADLINE = ("smart-turn", 6, 400, False)
+#: encoder layers, one flash launch each per encode
+WHISPER_LAYERS, SMART_TURN_LAYERS = 32, 4
+#: the log-mel shapes (seconds, mels); Smart Turn's 8 s x 80 stands in the JSON line
+LOG_MEL_SHAPES = [(s, m) for s in (1, 8, 30) for m in (80, 128)]
+LOG_MEL_HEADLINE = (8, 80)
+#: pass mark of the log-mel kernel on the log-mel output ((log10 + 4) / 4,
+#: a range of 2): f32 DFTs in two sum orders agree to ~5e-5 at these inputs
+LOG_MEL_ATOL = 5e-4
 #: decode attention at the serving shapes: (name, H, KV, hd, T, tails); T is
 #: the engine's --*_batched_max_t, the tails the steady chunk first, then the
 #: priority / ramp chunk sizes
@@ -131,6 +189,8 @@ L2_BYTES = 50 << 20
 HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
 INT8_OPS = 1979e12
+#: f32 on the CUDA cores (outside the tensor cores), NVIDIA's H100 SXM data sheet
+F32_FLOPS = 67e12
 
 
 def phase(name: str, **fields) -> None:
@@ -633,8 +693,12 @@ def _launch_counters():
     from s2s_tpu_torch.ops import int4_matmul as m4
     from s2s_tpu_torch.ops import int8_matmul as mm
 
+    from s2s_tpu_torch.ops import flash_attention as fa
+    from s2s_tpu_torch.ops import log_mel
+
     return {"int8_matmul": mm.int8_matmul, "decode_attention": da.concat_attention,
-            "int8_matmul_dyn": mm.int8_matmul_dyn, "int4_matmul": m4.int4_matmul}
+            "int8_matmul_dyn": mm.int8_matmul_dyn, "int4_matmul": m4.int4_matmul,
+            "flash_attention": fa.flash_attention, "log_mel": log_mel.mel_power}
 
 
 def quant_serve_phase(dev: torch.device, card: list[str]) -> dict[str, int]:
@@ -740,10 +804,10 @@ def _text_turn(text: str):
     ]
 
 
-def _audio_turn():
+def _audio_turn(freq: float = 220.0):
     rate = 16_000
     t = np.arange(2 * rate) / rate
-    speech = 0.3 * np.sin(2 * np.pi * 220 * t) * (1 + 0.5 * np.sin(2 * np.pi * 3 * t))
+    speech = 0.3 * np.sin(2 * np.pi * freq * t) * (1 + 0.5 * np.sin(2 * np.pi * 3 * t))
     pcm = np.concatenate([np.zeros(rate // 4), speech, np.zeros(rate)])
     pcm16 = (np.clip(pcm, -1, 1) * 32767).astype(np.int16).tobytes()
     step = rate // 10 * 2  # 100 ms of PCM16 per append
@@ -816,6 +880,18 @@ def serve_phase(dev: torch.device) -> int:
     phase("serve", build_s=build_s, warmup_turn_s=warmup_s, ttfa_s=_first_audio_s(text), text_turn_s=text_done,
           audio_seconds=text_pcm.size / 24_000, voice_turn=voice, int8_launches=launches)
     return launches
+
+
+def _reply_or_quiet(events, now) -> bool:
+    """A voice turn of the Whisper serve: its transcription, then either the
+    reply's ``response.done`` or, if no reply audio has come 20 s after the
+    transcription, the end of the attempt."""
+    transcripts = _transcripts(events)
+    if not transcripts:
+        return False
+    if "response.output_audio.delta" in _types(events):
+        return "response.done" in _types(events)
+    return now - transcripts[0][0] > 20.0
 
 
 def _voice_summary(events) -> dict:
@@ -927,6 +1003,293 @@ def traced_round(url: str) -> dict:
             "port_kernels": ours}
 
 
+def flash_attention_phase(dev: torch.device) -> dict:
+    """``flash_attention`` against its plain version at ``FLASH_SHAPES`` in
+    bf16, q, k and v laid out as the encoder makes them ((B, T, H, D)
+    projections viewed as heads); device times of the kernel, the plain
+    version and ``F.scaled_dot_product_attention`` (the library yardstick,
+    never called by the port).  The inputs stay in L2 between calls, as the
+    encoder's projections do."""
+    from s2s_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    rows, max_err, headline, d, calls = [], 0.0, None, 64, 20
+    for name, h, t, causal in FLASH_SHAPES:
+        q, k, v = (torch.randn(1, t, h, d, generator=gen, device=dev).to(torch.bfloat16).transpose(1, 2)
+                   for _ in range(3))
+        got = fa.flash_attention(q, k, v, causal=causal)
+        want = fa.flash_attention_reference(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        tol = 2 * bf16_ulp(want.float().abs().max().item())
+        check(got.shape == want.shape and math.isfinite(err) and err <= tol,
+              f"flash_attention {name} H={h} T={t} causal={causal}: |d|={err} > {tol}")
+        max_err = max(max_err, err)
+
+        def plain(i):
+            fa.flash_attention_reference(q, k, v, causal=causal)
+
+        def kernel(i):
+            fa.flash_attention(q, k, v, causal=causal)
+
+        def library(i):
+            torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=causal)
+
+        times = [device_ms(f, calls) for f in (plain, kernel, kernel, plain)]
+        ms, plain_ms = (times[1] + times[2]) / 2, (times[0] + times[3]) / 2
+        pairs = t * (t + 1) // 2 if causal else t * t
+        # q, k, v read once and o written once (bf16); QK^T and PV over the unmasked pairs
+        bound_ms, bound_by = bound(4 * h * t * d * 2, 4 * h * pairs * d, BF16_FLOPS)
+        row = dict(shape=name, H=h, T=t, D=d, causal=causal, max_abs_err=err, bound=tol, ms=ms,
+                   plain_ms=plain_ms, library_ms=device_ms(library, calls), bound_ms=bound_ms, bound_by=bound_by,
+                   kernel_TFLOPs=4 * h * pairs * d / (ms * 1e-3) / 1e12)
+        phase("flash_attention", **row)
+        rows.append(row)
+        if (name, h, t, causal) == FLASH_HEADLINE:
+            headline = row
+    check(headline is not None, "flash_attention headline shape measured")
+    return {"max_abs_err": max_err, **{key: headline[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                                       "library_ms")}}
+
+
+def _speech_like(n: int, gen: torch.Generator, dev) -> torch.Tensor:
+    """Noise under a 220 Hz tone modulated at 3 Hz, f32 at 16 kHz."""
+    t = torch.arange(n, device=dev) / 16_000
+    tone = 0.3 * torch.sin(2 * math.pi * 220 * t) * (1 + 0.5 * torch.sin(2 * math.pi * 3 * t))
+    return (0.1 * torch.randn(n, generator=gen, device=dev) + tone).float()
+
+
+def log_mel_phase(dev: torch.device) -> dict:
+    """The log-mel through the kernel (``log_mel.log_mel_spectrogram``)
+    against the plain torch ops (``mel.log_mel_spectrogram``) at
+    ``LOG_MEL_SHAPES``, within ``LOG_MEL_ATOL``; device times of both, of the
+    kernel alone, and of the library yardstick: ``torch.stft`` + power +
+    filterbank product + the same log steps."""
+    from s2s_tpu_torch.ops import log_mel, mel
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rows, max_err, headline, calls = [], 0.0, None, 20
+    window = torch.hann_window(mel.N_FFT, periodic=True, device=dev)
+    for seconds, n_mels in LOG_MEL_SHAPES:
+        audio = _speech_like(seconds * 16_000, gen, dev)
+        got = log_mel.log_mel_spectrogram(audio, n_mels)
+        want = mel.log_mel_spectrogram(audio, n_mels)
+        fb = mel.tables(n_mels, dev)[2]
+
+        def library(i=0):
+            spec = torch.stft(audio, mel.N_FFT, mel.HOP_LENGTH, window=window, center=True, pad_mode="reflect",
+                              return_complex=True)
+            power = (spec.real * spec.real + spec.imag * spec.imag)[:, :-1]
+            return mel.log_scale(power.T @ fb)
+
+        lib_diff = (library() - want).abs().max().item()
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        check(got.shape == want.shape == (n_mels, seconds * 100) and math.isfinite(err) and err <= LOG_MEL_ATOL,
+              f"log_mel {seconds} s x {n_mels}: |d|={err} > {LOG_MEL_ATOL}")
+        max_err = max(max_err, err)
+
+        def plain(i):
+            mel.log_mel_spectrogram(audio, n_mels)
+
+        def kernel(i):
+            log_mel.log_mel_spectrogram(audio, n_mels)
+
+        def kernel_only(i):
+            log_mel.mel_power(audio, n_mels)
+
+        times = [device_ms(f, calls) for f in (plain, kernel, kernel, plain)]
+        ms, plain_ms = (times[1] + times[2]) / 2, (times[0] + times[3]) / 2
+        frames, n_fft, n_freqs = seconds * 100, mel.N_FFT, mel.N_FREQS
+        # the function's own minimum: the audio read once and the log-mel
+        # written once; per frame a real FFT (2.5 n log2 n flops), the power
+        # (3 per bin) and the filterbank's nonzero weights (2 each)
+        nnz = int(torch.count_nonzero(fb).item())
+        fft_flops = frames * (2.5 * n_fft * math.log2(n_fft) + 3 * n_freqs + 2 * nnz)
+        bound_ms, bound_by = bound(4 * (seconds * 16_000 + frames * n_mels), fft_flops, F32_FLOPS)
+        # for information: the direct DFT the kernel computes (2 flops per
+        # sample, bin and frame for each of re and im) with the bases and the
+        # filterbank read once
+        dft_bytes = 4 * (seconds * 16_000 + 2 * n_fft * n_freqs + n_freqs * n_mels + frames * n_mels)
+        direct_dft_bound_ms = bound(dft_bytes, frames * (4 * n_fft * n_freqs + 3 * n_freqs + 2 * nnz),
+                                    F32_FLOPS)[0]
+        row = dict(seconds=seconds, n_mels=n_mels, max_abs_err=err, atol=LOG_MEL_ATOL, ms=ms, plain_ms=plain_ms,
+                   kernel_only_ms=device_ms(kernel_only, calls), library_ms=device_ms(library, calls),
+                   library_max_abs_diff=lib_diff, bound_ms=bound_ms, bound_by=bound_by,
+                   direct_dft_bound_ms=direct_dft_bound_ms)
+        phase("log_mel", **row)
+        rows.append(row)
+        if (seconds, n_mels) == LOG_MEL_HEADLINE:
+            headline = row
+    check(headline is not None, "log_mel headline shape measured")
+    return {"max_abs_err": max_err, **{key: headline[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                                       "library_ms")}}
+
+
+def tiny_whisper_parity_phase(dev: torch.device) -> None:
+    """Whisper ``test_tiny`` at head dim 64 (d 128, 2 heads, so the encoder's
+    attention takes the flash kernel on the card), f32: log-mel, encoder
+    and greedy tokens; Smart Turn's chain (``smart_turn.run``) on 8 s; the
+    voice-clone speaker: on the card against the same code on the CPU."""
+    import dataclasses
+
+    from s2s_tpu_torch.models import qwen3_tts, whisper
+    from s2s_tpu_torch.ops import flash_attention as fa
+    from s2s_tpu_torch.ops import log_mel
+    from s2s_tpu_torch.vad import smart_turn
+    from s2s_tpu_torch.weights import tree_to_torch as to
+
+    before = fa.flash_attention.launches, log_mel.mel_power.launches
+    cfg = dataclasses.replace(whisper.WhisperConfig.test_tiny(), d_model=128, n_heads=2, n_audio_ctx=400)
+    cpu = whisper.init_params(cfg, torch.Generator().manual_seed(12))
+    cpu["head"] = {"w": torch.randn((128, 1), generator=torch.Generator().manual_seed(13)) * 0.3,
+                   "b": torch.full((1,), 0.1)}
+    audio = _speech_like(2 * 16_000, torch.Generator().manual_seed(14), "cpu")
+    window = smart_turn.prepare_audio(audio.numpy())
+    spk_proj = torch.randn((80, 96), generator=torch.Generator().manual_seed(15)) * 80 ** -0.5
+    out = {}
+    for label, device, params in (("cpu", "cpu", cpu), ("cuda", dev, to(cpu, dev))):
+        mel = log_mel.log_mel_spectrogram(audio.to(device), 80)[None]
+        enc = whisper.encode(params, cfg, mel)
+        buf, n = whisper.greedy_decode_device(params, cfg, enc, torch.tensor([[1, 2, 3]], dtype=torch.int32,
+                                                                             device=device), 16, 0)
+        st_mel = log_mel.log_mel_spectrogram(torch.from_numpy(window).to(device), 80)[None]
+        prob = float(smart_turn.run(params, cfg, st_mel))
+        spk = qwen3_tts.speaker_from_reference({"spk_proj": spk_proj.to(device)}, audio.numpy())
+        out[label] = (mel.cpu(), enc.cpu(), buf[:n].tolist(), prob, spk.cpu())
+    mel_err = (out["cpu"][0] - out["cuda"][0]).abs().max().item()
+    check(mel_err <= LOG_MEL_ATOL, f"tiny whisper log-mel cuda vs cpu |d|={mel_err}")
+    rel = ((out["cpu"][1] - out["cuda"][1]).abs().max() / out["cpu"][1].abs().max()).item()
+    check(rel <= 1e-4, f"tiny whisper encoder cuda vs cpu rel {rel}")
+    check(out["cpu"][2] == out["cuda"][2] and len(out["cpu"][2]) > 0, f"tiny whisper tokens {out['cpu'][2]} "
+                                                                        f"vs {out['cuda'][2]}")
+    prob_err = abs(out["cpu"][3] - out["cuda"][3])
+    check(prob_err <= 1e-4, f"smart turn probability cuda vs cpu |d|={prob_err}")
+    spk_rel = ((out["cpu"][4] - out["cuda"][4]).abs().max() / out["cpu"][4].abs().max()).item()
+    check(spk_rel <= 1e-4, f"speaker_from_reference cuda vs cpu rel {spk_rel}")
+    launches = fa.flash_attention.launches - before[0], log_mel.mel_power.launches - before[1]
+    check(launches[0] == 2 * cfg.n_enc_layers and launches[1] == 3,
+          f"the tiny path launched flash {launches[0]} (want {2 * cfg.n_enc_layers}), log-mel {launches[1]} (want 3)")
+    phase("tiny_whisper_parity", log_mel_abs_err=mel_err, encoder_rel_err=rel, tokens=len(out["cpu"][2]),
+          smart_turn_prob_abs_err=prob_err, speaker_rel_err=spk_rel, flash_launches=launches[0],
+          log_mel_launches=launches[1])
+
+
+class _Lines(logging.Handler):
+    """Keeps the log records it is handed."""
+
+    def __init__(self) -> None:
+        super().__init__(logging.INFO)
+        self.records: list[logging.LogRecord] = []
+
+    def emit(self, record: logging.LogRecord) -> None:
+        self.records.append(record)
+
+
+def whisper_serve_phase(dev: torch.device, card: list[str]) -> dict[str, int]:
+    """The single-session serve with Whisper distil-large-v3 and Smart Turn
+    (``WHISPER_FLAGS``): build (the STT handler warms Whisper up), then every
+    count set to 0, one text turn and the voice turns.  Smart Turn's predictions and
+    the Whisper and Smart Turn encodes are counted by wrapping
+    ``SmartTurnAnalyzer.predict`` and ``whisper.encode``; the VAD handler
+    would log a failed prediction and carry on, so failures are counted and
+    its log watched.  Returns each kernel's launches over the two turns."""
+    from s2s_tpu_torch import cli
+    from s2s_tpu_torch.models import whisper
+    from s2s_tpu_torch.registry import GLOBAL_MODEL_CACHE
+    from s2s_tpu_torch.vad import smart_turn
+
+    counters = _launch_counters()
+    encodes = {"whisper": 0, "smart_turn": 0}
+    predictions, failures = [], []
+    real_encode, real_predict = whisper.encode, smart_turn.SmartTurnAnalyzer.predict
+
+    def counted_encode(params, cfg, mel):
+        encodes["whisper" if cfg.n_enc_layers == WHISPER_LAYERS else "smart_turn"] += 1
+        return real_encode(params, cfg, mel)
+
+    def counted_predict(self, audio, sample_rate=smart_turn.SAMPLE_RATE):
+        try:
+            result = real_predict(self, audio, sample_rate)
+        except Exception as exc:
+            failures.append(repr(exc))
+            raise
+        predictions.append(result)
+        return result
+
+    lines = _Lines()
+    loggers = [logging.getLogger(n) for n in ("s2s_tpu_torch.vad.handler", "s2s_tpu_torch.stt.whisper_handler")]
+    levels = [lg.level for lg in loggers]
+    for lg in loggers:
+        lg.addHandler(lines)
+        lg.setLevel(logging.INFO)
+    whisper.encode = counted_encode
+    smart_turn.SmartTurnAnalyzer.predict = counted_predict
+    stop = threading.Event()
+    try:
+        t0 = time.perf_counter()
+        manager, server, _ = cli.build_from_argv(["--device", "cuda", *WHISPER_FLAGS], stop)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        manager.start()
+        try:
+            check(server.started.wait(60), "server started")
+            url = f"ws://127.0.0.1:{server.bound_port}/v1/realtime"
+            torch.cuda.synchronize()
+            for fn in counters.values():  # count the measured turns only (not the build's warm-up)
+                fn.launches = 0
+            encodes.update(whisper=0, smart_turn=0)
+            predictions.clear()
+            lines.records.clear()
+            text = asyncio.run(_session(url, _text_turn(TEXT), _response_done, 600))
+            attempts, audio = [], None
+            for tone in VOICE_TONES_HZ:
+                events = asyncio.run(_session(url, _audio_turn(tone), _reply_or_quiet, 300))
+                transcripts = _transcripts(events)
+                check(len(transcripts) >= 1 and transcripts[0][1].strip() != "",
+                      f"whisper serve voice turn at {tone} Hz: a non-empty transcription ({transcripts})")
+                replied = "response.output_audio.delta" in _types(events)
+                attempts.append({"tone_hz": tone, "transcript": transcripts[0][1][:80], "replied": replied})
+                if replied:
+                    audio = events
+                    break
+            torch.cuda.synchronize()
+            launches = {name: fn.launches for name, fn in counters.items()}
+            seen = dict(encodes)
+        finally:
+            stop.set()
+            manager.stop()
+            GLOBAL_MODEL_CACHE.clear()
+    finally:
+        whisper.encode = real_encode
+        smart_turn.SmartTurnAnalyzer.predict = real_predict
+        for lg, level in zip(loggers, levels):
+            lg.removeHandler(lines)
+            lg.setLevel(level)
+
+    text_pcm, text_done = _reply(text, "whisper serve text turn")
+    check(audio is not None, f"whisper serve: a voice turn answered with audio: {attempts}")
+    voice = _voice_summary(audio)
+    messages = [r.getMessage() for r in lines.records]
+    failed_logs = [m for m in messages if "Smart Turn inference failed" in m]
+    finals = [r.args[0] for r in lines.records if r.getMessage().startswith("WhisperSTT final")]
+    check(len(predictions) >= 1 and not failures and not failed_logs,
+          f"Smart Turn ran: {len(predictions)} predictions, failures {failures}, failed logs {failed_logs}")
+    check(launches["flash_attention"] > 0 and launches["log_mel"] > 0,
+          f"the flash-attention and log-mel kernels launched in the whisper serve: {launches}")
+    want_flash = WHISPER_LAYERS * seen["whisper"] + SMART_TURN_LAYERS * seen["smart_turn"]
+    check(launches["flash_attention"] == want_flash and launches["log_mel"] == sum(seen.values()),
+          f"launches {launches} against encodes {seen}: every encoder layer through the flash kernel "
+          f"({want_flash}), every encode's log-mel through its kernel")
+    phase("whisper_serve", card=card, flags=WHISPER_FLAGS[WHISPER_FLAGS.index("--stt"):], build_s=build_s,
+          ttfa_s=_first_audio_s(text), text_turn_s=text_done, audio_seconds=text_pcm.size / 24_000,
+          voice_attempts=attempts, voice_turn=voice, whisper_final_infer_s=finals,
+          smart_turn_predictions=len(predictions),
+          smart_turn_inference_ms=[p.inference_ms for p in predictions],
+          smart_turn_probability=[p.probability for p in predictions], encodes=seen, launches=launches)
+    return launches
+
+
 def _first_audio_s(events) -> float:
     return next(t for t, e in events if e["type"] == "response.output_audio.delta")
 
@@ -970,6 +1333,11 @@ def main() -> int:
         w8a8_microbench_phase(dev)
         tiny_quant_parity_phase(dev)
     quant_launches = quant_serve_phase(dev, smi)
+    with no_tf32():
+        flash = flash_attention_phase(dev)
+        logmel = log_mel_phase(dev)
+        tiny_whisper_parity_phase(dev)
+    whisper_launches = whisper_serve_phase(dev, smi)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
@@ -985,6 +1353,12 @@ def main() -> int:
         {"name": "int4_matmul", "route": "cuda", "source": "s2s_tpu_torch/csrc/int4_matmul.cu",
          "replaces": "s2s_tpu/ops/int4_matmul.py:74", "launches": quant_launches["int4_matmul"],
          **{k: int4[k] for k in keys}},
+        {"name": "flash_attention", "route": "cuda", "source": "s2s_tpu_torch/csrc/flash_attention.cu",
+         "replaces": "s2s_tpu/ops/pallas_attention.py:68", "launches": whisper_launches["flash_attention"],
+         **{k: flash[k] for k in keys}},
+        {"name": "log_mel", "route": "cuda", "source": "s2s_tpu_torch/csrc/log_mel.cu",
+         "replaces": "s2s_tpu/ops/pallas_mel.py:73", "launches": whisper_launches["log_mel"],
+         **{k: logmel[k] for k in keys}},
     ]}))
     print(smi[0])
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -43,11 +43,6 @@ def check_supported(args: ParsedArguments) -> None:
             f"--vad_backend {args.vad.backend}: only the energy VAD runs in s2s_tpu_torch so far "
             "(Silero is ROADMAP queue 1 item 3)"
         )
-    if args.vad.smart_turn:
-        raise NotImplementedError(
-            "--vad_smart_turn needs the Whisper-encoder port (ROADMAP queue 1 item 4); "
-            "pass --vad_smart_turn false"
-        )
     if args.vad.enhancer_checkpoint:
         raise NotImplementedError("--vad_enhancer_checkpoint: DeepFilter is ROADMAP queue 1 item 7")
     if args.module.profile_dir:
@@ -101,7 +96,12 @@ def build_pipeline_unit(index: int, args: ParsedArguments, stop_event: threading
             speculative_reopen_ms=args.vad.speculative_reopen_ms,
             unanswered_reopen_ms=args.vad.unanswered_reopen_ms,
             short_segment_merge_ms=args.vad.short_segment_merge_ms,
-            smart_turn=False,
+            smart_turn=args.vad.smart_turn,
+            smart_turn_threshold=args.vad.smart_turn_threshold,
+            smart_turn_checkpoint=args.vad.smart_turn_checkpoint,
+            smart_turn_max_wait_ms=args.vad.smart_turn_max_wait_ms,
+            smart_turn_incomplete_delay_ms=args.vad.smart_turn_incomplete_delay_ms,
+            device=device,  # the Smart Turn analyzer's
         ),
     )
     stt = get_backend("stt", args.module.stt).create_handler(

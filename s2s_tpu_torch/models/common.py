@@ -17,6 +17,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from s2s_tpu_torch.ops.flash_attention import flash_attention, use_flash_for
 from s2s_tpu_torch.ops.quant import (
     QUANT_TYPES,
     DynQuantWeight,
@@ -82,13 +83,25 @@ class KVCache(NamedTuple):
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor | None = None,
               scale: float | None = None) -> torch.Tensor:
     """Masked attention with f32 logits.  q: (B,H,Tq,D); k,v: (B,Hkv,Tk,D)
-    (GQA repeats kv heads); mask broadcastable to (B,1,Tq,Tk), True = keep."""
+    (GQA repeats kv heads); mask broadcastable to (B,1,Tq,Tk), True = keep.
+
+    Unmasked attention of at least 16 queries with head dim 64 or 128 (the
+    Whisper and Smart Turn encoders) goes to
+    :func:`s2s_tpu_torch.ops.flash_attention.flash_attention`: the CUDA
+    kernel on the card, its plain version on the CPU (p unrounded).  The JAX
+    package sends only tile-aligned shapes (Tq, Tk multiples of 128) to its
+    Pallas kernel; the CUDA kernel takes a ragged edge, so the rule here
+    needs no alignment (:func:`~s2s_tpu_torch.ops.flash_attention.use_flash_for`).
+    Everything else takes the plain path, with p rounded to v's dtype as in
+    the JAX package."""
     h, d = q.shape[1], q.shape[3]
     hkv = k.shape[1]
     if hkv != h:
         k = torch.repeat_interleave(k, h // hkv, dim=1)
         v = torch.repeat_interleave(v, h // hkv, dim=1)
     scale = scale if scale is not None else d ** -0.5
+    if mask is None and use_flash_for(q.shape[2], d):
+        return flash_attention(q, k, v, scale=scale)
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if mask is not None:
         logits = logits.masked_fill(~mask, -1e30)

@@ -529,6 +529,18 @@ def decode_chunk_audio_gathered_tail(params: Params, cfg: Qwen3TTSConfig, embeds
     return audio, eos, embeds_all, state, contexts_all
 
 
+def speaker_from_reference(params: Params, ref_audio: np.ndarray) -> torch.Tensor:
+    """Voice-clone embedding: the mean 80-mel log-mel of the reference audio
+    (16 kHz f32) projected to D by ``spk_proj``; a (1, D) f32 tensor on the
+    weights' device.  The log-mel is the kernel on the card."""
+    from s2s_tpu_torch.ops.log_mel import log_mel_spectrogram
+
+    spk_proj = params["spk_proj"]
+    audio = torch.from_numpy(np.asarray(ref_audio, np.float32)).to(spk_proj.device)
+    pooled = torch.mean(log_mel_spectrogram(audio, 80), dim=1)  # (80,)
+    return (pooled @ spk_proj.float())[None, :]
+
+
 def load_speaker_file(path: str, device: torch.device | str = "cpu") -> torch.Tensor:
     """A precomputed speaker embedding (.npy/.npz) as a (1, D) f32 tensor."""
     arr = np.load(path)

@@ -113,6 +113,12 @@ def load() -> ctypes.CDLL:
                                                  i32, i32, i32, i32, i32, i32, i32,
                                                  ctypes.c_float, ptr]
             lib.s2s_decode_attention.restype = i32
+            i64 = ctypes.c_longlong
+            lib.s2s_flash_attention.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, *[i64] * 9,
+                                                i32, i32, ctypes.c_float, ptr]
+            lib.s2s_flash_attention.restype = i32
+            lib.s2s_log_mel.argtypes = [ptr, i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
+            lib.s2s_log_mel.restype = i32
             _lib = lib
         return _lib
 

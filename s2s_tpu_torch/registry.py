@@ -4,7 +4,9 @@ The registry types (``BackendSpec``, ``HandlerContext``, ``ModelCache``),
 the checkpoint loader and the backend aliases are the JAX package's, copied;
 ``HandlerContext`` also carries the device every model of the port lives on.
 The ported backends register under the SAME names, so the JAX package's
-flags work verbatim: ``parakeet-tdt``, ``local-jax`` and ``qwen3``.
+flags work verbatim: ``whisper`` (and its ``faster-whisper``, ``whisper-mlx``
+and ``mlx-audio-whisper`` aliases), ``parakeet-tdt``, ``local-jax`` and
+``qwen3``.
 
 With several pipeline units (``--num_pipelines``) or batched slots
 (``--llm_batched_slots``, ``--tts_batched_slots``) above 1, every unit shares
@@ -119,6 +121,30 @@ def _random_init(init, cfg, device: torch.device, what: str):
 
 
 # ── factories ────────────────────────────────────────────────────────
+
+
+def _make_whisper_stt(config, ctx: HandlerContext):
+    from s2s_tpu_torch.stt.whisper_handler import WhisperSTTHandler
+
+    tokenizer = None
+    if config.tokenizer:
+        from s2s_tpu_torch.stt.tokenizer import ByteLevelTokenizer
+
+        tokenizer = ByteLevelTokenizer.from_file(config.tokenizer)
+    tree = _load_checkpoint(config.checkpoint)
+    return WhisperSTTHandler(
+        ctx.stop_event, ctx.queue_in, ctx.queue_out,
+        setup_kwargs=dict(
+            device=ctx.device,
+            speculative_turns=ctx.speculative_turns,
+            device_scheduler=ctx.device_scheduler,
+            cancel_scope=ctx.cancel_scope,
+            model_size=config.model_size,
+            language=config.language,
+            tokenizer=tokenizer,
+            params=weights.whisper_to_torch(tree, ctx.device) if tree is not None else None,
+        ),
+    )
 
 
 def _make_parakeet_stt(config, ctx: HandlerContext):
@@ -266,6 +292,16 @@ def _make_qwen3_tts(config, ctx: HandlerContext):
                 gate=_global_gate(),
             ),
         )
+    ref_audio = None
+    if config.ref_audio:
+        import wave
+
+        import numpy as np
+
+        with wave.open(config.ref_audio) as w:
+            ref_audio = (
+                np.frombuffer(w.readframes(w.getnframes()), np.int16).astype(np.float32) / 32768.0
+            )
     return Qwen3TTSHandler(
         ctx.stop_event, ctx.queue_in, ctx.queue_out,
         setup_kwargs=dict(
@@ -277,7 +313,7 @@ def _make_qwen3_tts(config, ctx: HandlerContext):
             model=model,
             voice=config.voice,
             voice_instruct=config.voice_instruct,
-            ref_audio=config.ref_audio,
+            ref_audio=ref_audio,
             speaker_vec=load_speaker_file(config.ref_spk, ctx.device) if config.ref_spk else None,
             shared_tts=shared_tts,
             speculative_synthesis=config.speculative_synthesis,
@@ -331,9 +367,10 @@ def unflatten_params(flat: dict) -> dict:
 
 # ── registries ───────────────────────────────────────────────────────
 
-from s2s_tpu_torch.arguments import LocalLLMArgs, ParakeetSTTArgs, Qwen3TTSArgs  # noqa: E402
+from s2s_tpu_torch.arguments import LocalLLMArgs, ParakeetSTTArgs, Qwen3TTSArgs, WhisperSTTArgs  # noqa: E402
 
 STT_BACKENDS: dict[str, BackendSpec] = {
+    "whisper": BackendSpec("whisper", "stt", WhisperSTTArgs, _make_whisper_stt),
     "parakeet-tdt": BackendSpec("parakeet-tdt", "stt", ParakeetSTTArgs, _make_parakeet_stt),
 }
 LLM_BACKENDS: dict[str, BackendSpec] = {

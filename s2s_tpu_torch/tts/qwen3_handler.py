@@ -7,8 +7,10 @@ looks speakers up with ``jnp``, a speaker here is a row of the model's
 speaker table on its device, and text ids go to a cross-session batched
 engine (``shared_tts``,
 :class:`s2s_tpu_torch.parallel.session_scheduler.BatchedTTSScheduler`) as
-host arrays.  Voice cloning from reference audio needs the log-mel port
-(ROADMAP queue 1 item 4) and is refused; a precomputed speaker vector works.
+host arrays.  Voice cloning takes a precomputed speaker vector or reference
+audio (``ref_audio``, 16 kHz f32), whose speaker vector
+:func:`~s2s_tpu_torch.models.qwen3_tts.speaker_from_reference` computes on
+the model's device through the log-mel kernel.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from typing import Any, Iterator, Optional
 
 import torch
 
-from s2s_tpu_torch.models.qwen3_tts import Qwen3TTS, Qwen3TTSConfig
+from s2s_tpu_torch.models.qwen3_tts import Qwen3TTS, Qwen3TTSConfig, speaker_from_reference
 from s2s_tpu_torch.tts.base import BaseTTSHandler
 
 logger = logging.getLogger(__name__)
@@ -98,11 +100,6 @@ class Qwen3TTSHandler(BaseTTSHandler):
         speculative_synthesis: bool = True,
         warmup: bool = False,
     ) -> None:
-        if ref_audio is not None and speaker_vec is None:
-            raise NotImplementedError(
-                "voice cloning from --tts_ref_audio needs the log-mel port (ROADMAP queue 1 "
-                "item 4); pass a precomputed --tts_ref_spk instead"
-            )
         device = torch.device(device)
         self.setup_base(
             cancel_scope=cancel_scope,
@@ -132,6 +129,8 @@ class Qwen3TTSHandler(BaseTTSHandler):
                 logger.warning("Qwen3TTSHandler: random-init weights (no checkpoint provided)")
                 model = Qwen3TTS(cfg=config_for(model_size), chunk_frames=streaming_chunk_size, device=device)
             self.model = model
+            if ref_audio is not None and self._speaker_vec is None:
+                self._speaker_vec = speaker_from_reference(self.model.params, ref_audio)
             if warmup:
                 list(self.model.stream("Warm up.", max_new_tokens=streaming_chunk_size))
 

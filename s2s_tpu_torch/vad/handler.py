@@ -24,11 +24,11 @@ subtlest component in the cascade).  Responsibilities:
 Model seam: the iterator's model is injected (JAX Silero in production,
 scripted fakes in tests).
 
-The port's copy of ``s2s_tpu/vad/handler.py``, with two lazy branches
-dropped because their models are not ported: the Smart Turn analyzer built
-from ``smart_turn=True`` (ROADMAP queue 1 item 4) and the default Silero
-model when no ``model`` is given (queue 1 item 3).  Both raise instead; the
-port's builder passes ``EnergyVAD`` and ``smart_turn=False``.
+The port's copy of ``s2s_tpu/vad/handler.py``, trimmed of one lazy
+branch: the default Silero model when no ``model`` is given raises (Silero
+is not ported, ROADMAP queue 1 item 3); the port's builder passes
+``EnergyVAD``.  ``setup`` also takes the ``device`` the Smart Turn analyzer
+it builds runs on.
 """
 
 from __future__ import annotations
@@ -192,6 +192,7 @@ class VADHandler(BaseHandler):
         smart_turn_analyzer: Any | None = None,
         smart_turn_checkpoint: str | None = None,
         enhancer: Callable[[np.ndarray], np.ndarray] | None = None,
+        device: Any = "cpu",
     ) -> None:
         self.should_listen = should_listen
         self.sample_rate = sample_rate
@@ -214,7 +215,12 @@ class VADHandler(BaseHandler):
                 raise ValueError("smart_turn_max_wait_ms must be > 0")
             if smart_turn_incomplete_delay_ms < 0:
                 raise ValueError("smart_turn_incomplete_delay_ms must be >= 0")
-            raise NotImplementedError("Smart Turn needs the Whisper-encoder port (ROADMAP queue 1 item 4)")
+            from s2s_tpu_torch.vad.smart_turn import SmartTurnAnalyzer, load_checkpoint
+
+            params = load_checkpoint(smart_turn_checkpoint) if smart_turn_checkpoint else None
+            smart_turn_analyzer = SmartTurnAnalyzer(
+                threshold=smart_turn_threshold, encoder_params=params, device=device
+            )
         self.smart_turn_analyzer = smart_turn_analyzer if smart_turn else None
 
         self.unanswered_reopen_ms = max(

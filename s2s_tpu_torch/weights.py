@@ -13,7 +13,8 @@ given device, with the two layout changes the port makes:
   become PyTorch's ConvTranspose1d ``(in, out, k)``.
 
 Those are the inverses of the transforms in the JAX package's checkpoint
-converters (``convert_c2w_state_dict``, parakeet ``convert_state_dict``).
+converters (``convert_c2w_state_dict``, parakeet ``convert_state_dict``,
+whisper ``convert_hf_state_dict``).
 """
 
 from __future__ import annotations
@@ -86,4 +87,14 @@ def c2w_params(c2w: Any) -> Any:
 def qwen3_tts_params(tree: Any, device: torch.device | str) -> Any:
     p = tree_to_torch(tree, device)
     c2w_params(p["c2w"])
+    return p
+
+
+def whisper_to_torch(tree: Any, device: torch.device | str) -> Any:
+    """A Whisper or Smart Turn tree (encoder only or whole, Smart Turn's
+    ``head`` kept as it is) -> tensors on *device*, the two encoder
+    convolutions from ``(3, C_in, d)`` to Conv1d's ``(d, C_in, 3)``."""
+    p = tree_to_torch(tree, device)
+    p["conv1_w"] = conv_weight(p["conv1_w"])
+    p["conv2_w"] = conv_weight(p["conv2_w"])
     return p

@@ -53,25 +53,33 @@ vad/energy.py vad/iterator.py
 SHARED = {
     "vad/handler.py": (
         ["vad/handler.py"], {}, {"VADHandler.setup"},
-        "trimmed: the Smart Turn and default-Silero branches raise (models not ported)"),
+        "trimmed: the default-Silero branch raises (Silero not ported); setup hands its device to the "
+        "Smart Turn analyzer it builds"),
+    "vad/smart_turn.py": (
+        ["vad/smart_turn.py"], {}, {"SmartTurnAnalyzer.__init__", "load_checkpoint"},
+        "folded: the result type, the window and predict are copied; the analyzer runs the port's "
+        "log-mel kernel and encoder on its device, the checkpoint loads through the port's registry"),
     "audio/resample.py": (
         ["audio/resample.py"], {}, set(),
         "trimmed: the jitted on-device polyphase is not ported (no caller on the port's path)"),
     "registry.py": (
-        ["registry.py"], {}, {"_make_parakeet_stt", "_make_local_llm", "_make_qwen3_tts",
+        ["registry.py"], {}, {"_make_whisper_stt", "_make_parakeet_stt", "_make_local_llm", "_make_qwen3_tts",
                               "STT_BACKENDS", "LLM_BACKENDS", "TTS_BACKENDS", "resolve_backend_alias",
                               "get_backend"},
         "folded: the registry types, loaders and aliases are copied; the factories and the registries "
         "are the port's (its devices, its models, unported backends raise)"),
     "ops/mel.py": (
-        ["ops/mel.py"], {}, set(),
-        "folded: the numpy filterbank only; the log-mel runs in torch in models/parakeet.py"),
+        ["ops/mel.py"], {}, {"frame_audio", "log_mel_spectrogram"},
+        "folded: the numpy filterbank and DFT bases are copied; framing and the log-mel run in torch "
+        "(the plain version of the log-mel kernel in ops/log_mel.py)"),
+    "stt/whisper_handler.py": (
+        ["stt/whisper_handler.py"], {}, {"WhisperSTTHandler.setup"},
+        "folded: buckets, token parsing and the stage skeleton are copied; setup takes a device and "
+        "the transcriber runs the port's log-mel kernel and Whisper"),
     "stt/parakeet_handler.py": (
-        ["stt/parakeet_handler.py", "stt/whisper_handler.py"],
-        {"ParakeetSTTHandler": ["ParakeetSTTHandler", "WhisperSTTHandler"]},
-        {"config_for", "ParakeetSTTHandler.setup"},
-        "folded: the JAX handler subclasses the Whisper handler; its stage skeleton is copied into "
-        "one class, the transcriber is the port's"),
+        ["stt/parakeet_handler.py"], {}, {"config_for", "ParakeetSTTHandler.setup"},
+        "folded: it subclasses the port's Whisper handler as the JAX one does; setup passes the device "
+        "and the transcriber is the port's"),
     "tts/qwen3_handler.py": (
         ["tts/qwen3_handler.py"], {}, {"Qwen3TTSHandler.setup", "Qwen3TTSHandler._begin_speculative_synthesis",
                                        "Qwen3TTSHandler._synthesize"},
@@ -101,7 +109,7 @@ __init__.py audio/__init__.py llm/__init__.py models/__init__.py ops/__init__.py
 pipeline/__init__.py realtime/__init__.py runtime/__init__.py stt/__init__.py tts/__init__.py
 utils/__init__.py vad/__init__.py
 builder.py cli.py
-models/common.py models/decoder_lm.py models/parakeet.py models/qwen3_tts.py
+models/common.py models/decoder_lm.py models/parakeet.py models/qwen3_tts.py models/whisper.py
 ops/decode_attention.py ops/int4_matmul.py ops/int8_matmul.py ops/quant.py
 parallel/batched_decode.py
 """.split()

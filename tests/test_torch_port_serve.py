@@ -5,6 +5,9 @@
 - A tiny batched serve (two pipeline units sharing the batched LM, TTS and
   Parakeet engines, with a small TTS slot cache) answers two concurrent
   WebSocket text turns, each with audio deltas and ``response.done``.
+- A tiny serve with Whisper tiny and Smart Turn on answers a WebSocket voice
+  turn: a transcription, Smart Turn predictions with none failed, and (for a
+  non-empty random-init transcript) a spoken reply with ``response.done``.
 - Every ``s2s_tpu_torch`` module imports, and both tiny pipelines build, in a
   process where importing ``jax`` or the JAX package ``s2s_tpu`` fails.
 - ``--model_parallel`` above 1 raises at build time instead of degrading.
@@ -47,6 +50,8 @@ def _with(flags: list[str], **values) -> list[str]:
 BATCHED_FLAGS = _with(TINY_FLAGS, num_pipelines=2, llm_batched_slots=2, tts_batched_slots=2) + [
     "--tts_batched_max_t", "64", "--tts_context_frames", "8", "--warmup_engines", "true",
 ]
+#: Whisper tiny (the real tiny width, random weights) with Smart Turn on
+WHISPER_FLAGS = _with(TINY_FLAGS, stt="whisper", vad_smart_turn="true")
 
 
 async def _text_turn(url: str, text: str, max_s: float = 60.0) -> list[dict]:
@@ -118,6 +123,90 @@ def test_tiny_batched_cpu_serve_answers_two_concurrent_text_turns():
         assert events[-1]["type"] == "response.done" and events[-1]["response"]["status"] == "completed", types
 
 
+def _voice_turn_events():
+    """3.25 s of a modulated 220 Hz tone between silences as PCM16 appends,
+    then a commit."""
+    import numpy as np
+
+    rate = 16_000
+    t = np.arange(2 * rate) / rate
+    speech = 0.3 * np.sin(2 * np.pi * 220 * t) * (1 + 0.5 * np.sin(2 * np.pi * 3 * t))
+    pcm = np.concatenate([np.zeros(rate // 4), speech, np.zeros(rate)])
+    pcm16 = (np.clip(pcm, -1, 1) * 32767).astype(np.int16).tobytes()
+    step = rate // 10 * 2
+    return [{"type": "input_audio_buffer.append", "audio": base64.b64encode(pcm16[i : i + step]).decode()}
+            for i in range(0, len(pcm16), step)] + [{"type": "input_audio_buffer.commit"}]
+
+
+async def _voice_turn(url: str, max_s: float) -> list[dict]:
+    """Send the voice turn; collect events until the transcription and then
+    ``response.done`` (or 5 s of quiet after an empty transcript)."""
+    import websockets.asyncio.client as ws_client
+
+    events: list[dict] = []
+    loop = asyncio.get_running_loop()
+    async with ws_client.connect(url, max_size=None) as ws:
+        events.append(json.loads(await asyncio.wait_for(ws.recv(), 10)))
+        for event in _voice_turn_events():
+            await ws.send(json.dumps(event))
+        deadline, quiet_until = loop.time() + max_s, None
+        while loop.time() < deadline:
+            if quiet_until is not None and loop.time() > quiet_until:
+                break
+            try:
+                event = json.loads(await asyncio.wait_for(ws.recv(), 1.0))
+            except asyncio.TimeoutError:
+                continue
+            events.append(event)
+            if event["type"] == "conversation.item.input_audio_transcription.completed" and not event[
+                    "transcript"].strip():
+                quiet_until = loop.time() + 5.0
+            if event["type"] == "response.done":
+                break
+    return events
+
+
+def test_tiny_cpu_serve_with_whisper_and_smart_turn_answers_a_voice_turn(monkeypatch, caplog):
+    """Energy VAD with Smart Turn on, Whisper tiny: the voice turn is
+    transcribed and answered; Smart Turn ran at the soft end and none of its
+    predictions failed (the VAD handler would log and carry on)."""
+    import logging
+
+    from s2s_tpu_torch import cli
+    from s2s_tpu_torch.registry import GLOBAL_MODEL_CACHE
+    from s2s_tpu_torch.vad import smart_turn
+
+    predictions = []
+    real = smart_turn.SmartTurnAnalyzer.predict
+
+    def counted(self, audio, sample_rate=smart_turn.SAMPLE_RATE):
+        result = real(self, audio, sample_rate)
+        predictions.append(result)
+        return result
+
+    monkeypatch.setattr(smart_turn.SmartTurnAnalyzer, "predict", counted)
+    stop = threading.Event()
+    manager, server, _ = cli.build_from_argv(["--device", "cpu", *WHISPER_FLAGS], stop)
+    manager.start()
+    try:
+        assert server.started.wait(30)
+        with caplog.at_level(logging.ERROR):
+            events = asyncio.run(_voice_turn(f"ws://127.0.0.1:{server.bound_port}/v1/realtime", 240))
+    finally:
+        stop.set()
+        manager.stop()
+        GLOBAL_MODEL_CACHE.clear()
+    types = [e["type"] for e in events]
+    transcripts = [e["transcript"] for e in events
+                   if e["type"] == "conversation.item.input_audio_transcription.completed"]
+    assert transcripts, types
+    assert predictions and all(0.0 <= p.probability <= 1.0 for p in predictions)
+    assert "Smart Turn inference failed" not in caplog.text
+    if transcripts[0].strip():  # random weights may decode EOT first: then no reply
+        assert "response.output_audio.delta" in types, types
+        assert events[-1]["type"] == "response.done" and events[-1]["response"]["status"] == "completed", types
+
+
 _NO_JAX = """
 import importlib, json, pkgutil, sys, threading
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
@@ -139,7 +228,8 @@ print("OK", len(names))
 
 def test_port_imports_and_builds_without_jax():
     env = dict(os.environ, PYTHONPATH=ROOT)
-    proc = subprocess.run([sys.executable, "-c", _NO_JAX, json.dumps([TINY_FLAGS, BATCHED_FLAGS])], cwd=ROOT,
+    proc = subprocess.run([sys.executable, "-c", _NO_JAX, json.dumps([TINY_FLAGS, BATCHED_FLAGS, WHISPER_FLAGS])],
+                          cwd=ROOT,
                           env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.startswith("OK"), proc.stdout
@@ -155,12 +245,42 @@ def test_model_parallel_raises_at_build_time():
 def test_unported_options_raise():
     from s2s_tpu_torch import cli
 
-    argv = list(TINY_FLAGS)
-    argv[argv.index("--vad_smart_turn") + 1] = "true"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.build_from_argv(["--device", "cpu", *argv], threading.Event())
+        cli.build_from_argv(["--device", "cpu", *_with(TINY_FLAGS, vad_backend="silero")], threading.Event())
     with pytest.raises(NotImplementedError, match="not ported"):
-        cli.build_from_argv(["--device", "cpu", *TINY_FLAGS, "--stt", "whisper"], threading.Event())
+        cli.build_from_argv(["--device", "cpu", *TINY_FLAGS, "--stt", "paraformer"], threading.Event())
+
+
+def test_whisper_aliases_and_voice_cloning_build(tmp_path):
+    """The reference's Whisper backend names resolve to the port's Whisper
+    stage, and ``--tts_ref_audio`` (a 16 kHz PCM16 WAV) builds a cloned
+    speaker vector through the log-mel."""
+    import wave
+
+    import numpy as np
+
+    from s2s_tpu_torch import cli
+    from s2s_tpu_torch.registry import GLOBAL_MODEL_CACHE, get_backend
+    from s2s_tpu_torch.stt.whisper_handler import WhisperSTTHandler
+
+    for alias in ("faster-whisper", "whisper-mlx", "mlx-audio-whisper"):
+        assert get_backend("stt", alias).name == "whisper"
+    wav = tmp_path / "ref.wav"
+    pcm = (0.2 * np.random.default_rng(2).standard_normal(12_000) * 32767).astype(np.int16)
+    with wave.open(str(wav), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16_000)
+        w.writeframes(pcm.tobytes())
+    flags = _with(WHISPER_FLAGS, stt="faster-whisper") + ["--tts_ref_audio", str(wav)]
+    manager, _, _ = cli.build_from_argv(["--device", "cpu", *flags], threading.Event())
+    try:
+        stt = next(h for h in manager.handlers if isinstance(h, WhisperSTTHandler))
+        tts = next(h for h in manager.handlers if type(h).__name__ == "Qwen3TTSHandler")
+        assert stt.device.type == "cpu"
+        assert tts._speaker_vec.shape == (1, tts.model.cfg.lm.d_model) and tts._model_type() == "voice_clone"
+    finally:
+        GLOBAL_MODEL_CACHE.clear()
 
 
 def test_device_flag_is_stripped_and_cuda_needs_a_card():
