@@ -11,8 +11,12 @@ Phases, each printed on its own line:
    taken in turns (plain, kernel, kernel, plain) with CUDA graphs over
    enough weight or cache copies to exceed the 50 MB L2: ``int8_matmul``,
    then ``decode_attention`` (tail form at the SmolLM2-1.7B and Qwen3-TTS
-   talker shapes, and the Pallas-contract form, whose caches must come out
-   bitwise equal to the plain version's);
+   talker shapes and the talker at its max_seq_len 4096, whose keys stream
+   through a ring of tiles, with ``F.scaled_dot_product_attention`` timed
+   beside it at every shape and the launch plan (cluster size, tile rows,
+   stages) printed; rows duplicated at B 4 and 16
+   must come out bitwise equal; then the Pallas-contract form, whose caches
+   must come out bitwise equal to the plain version's);
 4. tiny configs on the card against the same code on the CPU: the single-
    session models, then the batched LM and talker tail programs (the CPU
    path is held against the JAX package by ``tests/test_torch_port_*``);
@@ -52,7 +56,9 @@ Phases, each printed on its own line:
    large-v3 encoder's shapes (20 heads of 64 x every Whisper duration
    bucket, 50-1500 positions), at Smart Turn's (6 heads x 400) and one
    causal shape, within 2 bf16 ulps of max|plain|, with device times of
-   the kernel, the plain version and ``F.scaled_dot_product_attention``;
+   the kernel, the plain version and ``F.scaled_dot_product_attention``,
+   the tensor-core kernel's tiles and stages, and a duplicated head that
+   must come out bitwise equal to the head it copies;
 13. ``log_mel`` (the log-mel kernel, then the torch log steps) against the
    plain torch log-mel at 1, 8 and 30 s x 80 and 128 mels, within
    ``LOG_MEL_ATOL`` on the log-mel output, with device times of both and of
@@ -156,9 +162,11 @@ LOG_MEL_HEADLINE = (8, 80)
 LOG_MEL_ATOL = 5e-4
 #: decode attention at the serving shapes: (name, H, KV, hd, T, tails); T is
 #: the engine's --*_batched_max_t, the tails the steady chunk first, then the
-#: priority / ramp chunk sizes
+#: priority / ramp chunk sizes; last the talker at its max_seq_len, whose
+#: keys do not fit a CTA at once and stream through a ring of tiles
 ATTN_SHAPES = [("smollm2-1.7b", 32, 32, 64, 512, (6, 1, 2, 4, 8, 12)),
-               ("qwen3-tts-talker", 16, 8, 128, 192, (3, 2, 4))]
+               ("qwen3-tts-talker", 16, 8, 128, 192, (3, 2, 4)),
+               ("qwen3-tts-talker-4096", 16, 8, 128, 4096, (3,))]
 ATTN_ROWS = [1, 4, 16]
 #: the decode-attention shape in the JSON line: the 4-session LM steady chunk
 ATTN_HEADLINE = ("smollm2-1.7b", 4, 6)
@@ -303,12 +311,18 @@ def _sms(dev: torch.device) -> int:
 
 def attention_phase(dev: torch.device) -> dict:
     """decode_attention against its plain version at the serving shapes:
-    lengths from a seed, row 0 at the full cache; then the Pallas-contract
-    form at B=4, whose caches must match the plain version's bit for bit."""
+    lengths from a seed, row 0 at the full cache, SDPA timed beside it; rows
+    duplicated at B=4 and 16 must come out bit-equal; then the
+    Pallas-contract form at B=4, whose caches must match the plain
+    version's bit for bit."""
     from s2s_tpu_torch.ops import decode_attention as da
 
     gen = torch.Generator(device=dev).manual_seed(1)
     rng = np.random.default_rng(1)
+    # the duplicate-row checks draw from their own streams, so the timed
+    # shapes keep the inputs of earlier runs
+    dup_gen = torch.Generator(device=dev).manual_seed(2)
+    dup_rng = np.random.default_rng(2)
     rows, max_err, headline = [], 0.0, None
     for name, h, kv, hd, t, tails in ATTN_SHAPES:
         for b in ATTN_ROWS:
@@ -325,6 +339,7 @@ def attention_phase(dev: torch.device) -> dict:
                 cl = torch.from_numpy(cache_len).to(dev)
                 tl = torch.from_numpy(rng.integers(1, n + 1, b).astype(np.int32)).to(dev)
                 ck, cv = caches[0]
+                plan = da.device_plan(b, kv, t, n, h // kv, hd, 2, dev)
                 got = da.concat_attention(q, ck, cv, tk, tv, cl, tl)
                 want = da.concat_attention_reference(q, ck, cv, tk, tv, cl, tl)
                 torch.cuda.synchronize()
@@ -348,13 +363,27 @@ def attention_phase(dev: torch.device) -> dict:
                                            4 * valid * (h // kv) * kv * hd, BF16_FLOPS)
                 row = dict(shape=name, B=b, H=h, KV=kv, hd=hd, T=t, n=n, max_abs_err=err, bound=tol, ms=ms,
                            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                           kernel_GBps=2 * valid * kv * hd * 2 / (ms * 1e-3) / 1e9)
-                if (name, b, n) == ATTN_HEADLINE:
-                    row["library_ms"] = _sdpa_ms(q, caches, tk, tv, cl, tl)
+                           library_ms=_sdpa_ms(q, caches, tk, tv, cl, tl),
+                           kernel_GBps=2 * valid * kv * hd * 2 / (ms * 1e-3) / 1e9,
+                           cluster=plan.cluster, tile_rows=plan.tile_rows, stages=plan.stages)
                 phase("decode_attention", **row)
                 rows.append(row)
                 if (name, b, n) == ATTN_HEADLINE:
                     headline = row
+            if b in (4, 16):  # duplicated rows (as a padded width bucket) must come out bit-equal
+                n = tails[0]
+                tk, tv = (torch.randn(b, kv, n, hd, generator=dup_gen, device=dev).to(torch.bfloat16)
+                          for _ in range(2))
+                cache_len = dup_rng.integers(0, t + 1, b).astype(np.int32)
+                tail_len = dup_rng.integers(1, n + 1, b).astype(np.int32)
+                pair = torch.arange(b, device=dev) % 2  # rows 0, 1, 0, 1, ...
+                args = [x[pair].contiguous() for x in (q, *caches[0], tk, tv)]
+                lens = [torch.from_numpy(x).to(dev)[pair].contiguous() for x in (cache_len, tail_len)]
+                got = da.concat_attention(*args, *lens)
+                torch.cuda.synchronize()
+                check(all(torch.equal(got[i], got[i % 2]) for i in range(b)),
+                      f"decode_attention {name} B={b}: duplicated rows differ")
+                phase("decode_attention_duplicate_rows", shape=name, B=b, n=n, bitwise_equal=True)
             if b == 4:  # the Pallas contract: slot write at pos + keys <= pos
                 k_new, v_new = (torch.randn(b, kv, 1, hd, generator=gen, device=dev).to(torch.bfloat16)
                                 for _ in range(2))
@@ -1025,6 +1054,9 @@ def flash_attention_phase(dev: torch.device) -> dict:
         check(got.shape == want.shape and math.isfinite(err) and err <= tol,
               f"flash_attention {name} H={h} T={t} causal={causal}: |d|={err} > {tol}")
         max_err = max(max_err, err)
+        dup = fa.flash_attention(*(torch.cat([x, x[:, :1]], dim=1) for x in (q, k, v)), causal=causal)
+        torch.cuda.synchronize()
+        check(torch.equal(dup[:, h], dup[:, 0]), f"flash_attention {name} H={h} T={t}: a duplicated head differs")
 
         def plain(i):
             fa.flash_attention_reference(q, k, v, causal=causal)
@@ -1042,7 +1074,8 @@ def flash_attention_phase(dev: torch.device) -> dict:
         bound_ms, bound_by = bound(4 * h * t * d * 2, 4 * h * pairs * d, BF16_FLOPS)
         row = dict(shape=name, H=h, T=t, D=d, causal=causal, max_abs_err=err, bound=tol, ms=ms,
                    plain_ms=plain_ms, library_ms=device_ms(library, calls), bound_ms=bound_ms, bound_by=bound_by,
-                   kernel_TFLOPs=4 * h * pairs * d / (ms * 1e-3) / 1e12)
+                   kernel_TFLOPs=4 * h * pairs * d / (ms * 1e-3) / 1e12, duplicate_head_bitwise_equal=True,
+                   **fa.tensor_core_tiles())
         phase("flash_attention", **row)
         rows.append(row)
         if (name, h, t, causal) == FLASH_HEADLINE:

@@ -3,43 +3,69 @@
 // reaching device memory.
 //
 // Replaces the TPU Pallas kernel s2s_tpu/ops/pallas_attention.py::flash_attention
-// (body `_flash_kernel`), with its math:
-//   q pre-scaled in f32;  s = q . k in f32 (keys after the query masked when
-//   causal);  a running row max m and sum l, rescaled by exp(m_old - m_new) per
-//   key tile;  acc += p v with p kept in f32;  out = acc / max(l, 1e-30), rounded
-//   once to the element type.
-// The Pallas kernel needs Tq and Tk to be multiples of its 128-row tiles. This
-// one masks a ragged last tile itself (keys >= Tk score -inf, query rows >= Tq
-// are computed from zeros and not written), so every Whisper duration bucket
-// (50-1500 encoder positions) and Smart Turn's 400 run with no padding.
+// (body `_flash_kernel`): a running row max m and sum l, rescaled by
+// exp(m_old - m_new) per key tile; out = acc / max(l, 1e-30), rounded once to
+// the element type. The Pallas kernel needs Tq and Tk to be multiples of its
+// 128-row tiles; both kernels here mask a ragged last tile themselves (keys >=
+// Tk score -inf, query rows >= Tq are not written), so every Whisper duration
+// bucket (50-1500 encoder positions) and Smart Turn's 400 run with no padding.
 //
-// What bounds it: at the encoder's shapes the work is 4 * Tq * Tk * D flops per
-// head over 2 * (2 * Tq + 2 * Tk) * D bytes (bf16): hundreds of flops per byte
-// at T >= 250, so it is bound by arithmetic, on the tensor cores' 989 TFLOP/s
-// in the limit. This kernel does its arithmetic in f32 on the CUDA cores and
-// is bound by their rate, by shared-memory loads and, at Smart Turn's few
-// heads, by one block's chain of key tiles; a wgmma/TMA design is later work
-// (ROADMAP).
+// What bounds it: 4 * Tq * Tk * D flops per head over 2 * (2 * Tq + 2 * Tk) * D
+// bytes (bf16), hundreds of flops per byte at T >= 250, so the limit is the
+// tensor cores' 989 TFLOP/s (bf16); at Smart Turn's 6 heads x 400 positions it
+// is the latency of one block's chain of 7 key tiles.
 //
-// How the design answers that:
-// - One block of 256 threads (16 x 16) per (tile of 64 or 32 queries, head).
-//   It stages its Q tile (scaled, transposed) once, then streams K (transposed)
-//   and V in tiles of 64 keys through shared memory with 16-byte global loads,
-//   so each K and V row is read from device memory once per query tile.
-// - Scores are register-tiled: thread (ty, tx) owns rows RA * ty + a (RA = 4
-//   or 2) and keys 4 * tx + c, and reads its queries and keys as float4 from
-//   shared memory (2 shared loads per 4 * RA FMAs).
-// - The online softmax runs in registers: a row's 64 scores sit in the 16
-//   lanes of a half warp, so its max and sum take 4 shuffles each; only p goes
-//   through shared memory, row-major with a padded stride, for PV, where each
-//   thread owns 4 (D = 64) or 8 (D = 128) output dims and reads p and V as
-//   float4.
-// - Tile size by shape: 32-query tiles when 64-query tiles would give the card
-//   fewer than 1.5 blocks per SM (Smart Turn, the short Whisper buckets).
-// - Causal blocks stop at the last key tile their queries can see.
-// - Sums run in a fixed order and no atomics are used: the same inputs give the
-//   same bits on every run.
+// bf16 (every served encoder layer): tensor cores fed by TMA.
+// - One block per (64 queries, head): one consumer warpgroup (128 threads)
+//   and one producer warp. On an H100, variants in turns on the same inputs
+//   (PERF.md): two consumer warpgroups per block (128-query tiles that
+//   share each K/V tile) and 3 stages were slower or level at every encoder
+//   shape, head dim 128 included; a 64-query block with 2 stages holds 40 KB
+//   of shared memory at D 64, so several blocks share an SM.
+// - The producer issues every copy as TMA (cp.async.bulk.tensor.4d) over the
+//   head views' own strides (the encoder's (B, T, H, D) projections seen as
+//   (B, H, T, D)), with 128-byte swizzle: the Q tile once, then K and V tiles
+//   of 64 keys through a ring of 2 shared-memory stages, each completed on an
+//   mbarrier ("full"); the consumer warps release a stage on another
+//   ("empty"). A D = 128 row is two 64-column boxes. TMA zero-fills rows past
+//   Tq and Tk. The tensor maps are encoded on the host for each call
+//   (cuTensorMapEncodeTiled, fetched through cudaGetDriverEntryPoint: no
+//   -lcuda) and passed as __grid_constant__ parameters.
+// - S = Q K^T by wgmma.mma_async m64n64k16 (bf16 in, f32 accumulate), both
+//   operands read from shared memory through descriptors (K-major, 128-byte
+//   swizzle). The online softmax runs on the accumulator fragment in
+//   registers: a row's values sit in one quad of threads, so its max takes two
+//   shuffles per key tile and its sum is reduced once at the end. l is summed
+//   from the f32 p.
+// - P is rounded to bf16 in registers and fed as the register A operand of the
+//   PV wgmma (m64nDk16): the score accumulator's layout is the A fragment's.
+//   V is the shared-memory B operand in its natural (keys, D) layout, read
+//   with wgmma's transpose bit (MN-major), so V is never transposed in memory.
+//   The output accumulator stays f32 in registers; one division at the end,
+//   then bf16.
+// - Causal blocks stop at their last visible key tile; only a tile that holds
+//   the diagonal or the ragged edge is masked.
+// - Numerics: p rounded to bf16 before PV (what the tensor cores take; the
+//   JAX package's served attention rounds the normalised p to bf16,
+//   s2s_tpu/models/common.py:106); the plain version keeps p in f32, and
+//   the two agree within 2 bf16 ulps of max|out| at the encoder's shapes
+//   (chip_smoke.py). Sums run in a fixed order with no atomics: the same
+//   inputs give the same bits on every run.
+// - Not done: the softmax of one tile overlapping the PV product of the one
+//   before inside a warpgroup (tried with Q held as register fragments: more
+//   registers, fewer blocks per SM, slower at every shape), and a split of
+//   the keys over a cluster for Smart Turn's 42 blocks.
+//
+// f32 (the tiny parity programs on the card, rel 1e-4 against the CPU, which
+// bf16 tensor cores cannot meet): the CUDA-core kernel below, unchanged: one
+// 256-thread block per (64 or 32 queries, head), K^T and V staged through
+// shared memory, f32 FMAs, p kept in f32.
+//
+// The earlier bf16 design was that CUDA-core kernel (H100 80GB HBM3, 700 W,
+// PERF.md): 33.6 us at Smart Turn (SDPA 11.2), 472.3 us at 20 heads x 1500
+// positions (SDPA 38.2), at most 24.4 TFLOP/s.
 
+#include <cuda.h>  // CUtensorMap and its enums only: the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -53,20 +79,6 @@ constexpr int kThreads = 256;
 
 template <typename T>
 struct Vec;
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int n = 8;
-  __device__ static void load(const __nv_bfloat16* p, float* out) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
-    }
-  }
-};
 template <>
 struct Vec<float> {
   static constexpr int n = 4;
@@ -83,8 +95,6 @@ template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) { return __float2bfloat16(x); }
 
 struct Strides {
   long long b, h, t;
@@ -340,14 +350,387 @@ bool aligned(const void* p, long long sb, long long sh, long long st, int vec) {
 
 }  // namespace
 
+namespace {
+namespace tc {
+
+constexpr int kBM = 64;     // queries per block: one consumer warpgroup
+constexpr int kBN = 64;     // keys per tile
+constexpr int kStages = 2;  // K/V ring depth
+
+// Shared-memory layout of one block, offsets from a 1024-byte aligned base
+// (the 128-byte swizzle repeats every 8 rows of 128 bytes). A tile of R rows
+// and D columns is D / 64 boxes of R rows x 128 bytes, one after the other.
+template <int D>
+struct Layout {
+  static constexpr int kBoxes = D / 64;
+  static constexpr int kQBytes = kBoxes * kBM * 128;
+  static constexpr int kTileBytes = kBoxes * kBN * 128;  // one K or V tile
+  static constexpr int kStageBytes = 2 * kTileBytes;     // K, then V
+  static constexpr int kBarOffset = kQBytes + kStages * kStageBytes;
+  // mbarriers: q_full, full[kStages], empty[kStages]
+  static constexpr int kBytes = kBarOffset + 8 * (1 + 2 * kStages);
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// Wait for the completion of the barrier's phase of the given parity.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// One box of a 4-D tensor map {d, t, h, b} into shared memory, completing on bar.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int d, int t, int h,
+                                         int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d), "r"(t), "r"(h), "r"(b)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading and
+// stride byte offsets (16-byte units).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo_bytes, uint32_t sbo_bytes) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo_bytes >> 4) << 16) |
+         (static_cast<uint64_t>(sbo_bytes >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() { asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory"); }
+
+// Pin registers in place around the asynchronous products, so the compiler
+// neither reads an accumulator before its wgmma completes nor moves it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (64 x 64, f32) += A (64 x 16, shared) * B (16 x 64, shared), both K-major
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// d (64 x 64, f32) += A (64 x 16, bf16 registers) * B (16 x 64, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n64_mn(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d (64 x 128, f32) += A (64 x 16, bf16 registers) * B (16 x 128, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n128_mn(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[4], uint64_t desc_b);
+template <>
+__device__ __forceinline__ void wgmma_pv<64>(float (&o)[32], const uint32_t (&a)[4], uint64_t desc_b) {
+  wgmma_rs_n64_mn(o, a, desc_b);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<128>(float (&o)[64], const uint32_t (&a)[4], uint64_t desc_b) {
+  wgmma_rs_n128_mn(o, a, desc_b);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Online softmax of one 64 x 64 score tile in the wgmma accumulator layout
+// (this thread: rows r (index 0) and r + 8 (index 1), in each 8-key chunk the
+// keys col, col + 1): masks keys >= Tk and, when causal, keys after the row
+// (only when `edge`); updates the running max m and this thread's share of
+// the running sum l (f32 p); returns in corr the factors that rescale the
+// output rows; packs p rounded to bf16 as the A fragments of the PV product
+// (key step j holds score chunks 2j and 2j + 1).
+__device__ __forceinline__ void softmax_tile(float (&sc)[32], float (&m)[2], float (&l)[2], float (&corr)[2],
+                                             uint32_t (&pa)[4][4], bool edge, int k0, int Tk, int causal,
+                                             int row0, int col, float scale_log2) {
+  if (edge) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kj = k0 + 8 * i + col + e;
+        if (kj >= Tk || (causal && kj > row0)) sc[4 * i + e] = -INFINITY;
+        if (kj >= Tk || (causal && kj > row0 + 8)) sc[4 * i + 2 + e] = -INFINITY;
+      }
+    }
+  }
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    mx[0] = fmaxf(mx[0], fmaxf(sc[4 * i], sc[4 * i + 1]));
+    mx[1] = fmaxf(mx[1], fmaxf(sc[4 * i + 2], sc[4 * i + 3]));
+  }
+  float mu[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], off));
+    mu[r] = mx[r] == -INFINITY ? 0.f : mx[r] * scale_log2;
+    corr[r] = exp2f(m[r] * scale_log2 - mu[r]);
+    m[r] = mx[r];
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      sc[4 * i + e] = exp2f(fmaf(sc[4 * i + e], scale_log2, -mu[e >> 1]));
+      sum[e >> 1] += sc[4 * i + e];
+    }
+  }
+  l[0] = l[0] * corr[0] + sum[0];
+  l[1] = l[1] * corr[1] + sum[1];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    pa[j][0] = pack_bf16(sc[8 * j], sc[8 * j + 1]);
+    pa[j][1] = pack_bf16(sc[8 * j + 2], sc[8 * j + 3]);
+    pa[j][2] = pack_bf16(sc[8 * j + 4], sc[8 * j + 5]);
+    pa[j][3] = pack_bf16(sc[8 * j + 6], sc[8 * j + 7]);
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void rescale(float (&o)[D / 2], const float (&corr)[2]) {
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    o[4 * i] *= corr[0];
+    o[4 * i + 1] *= corr[0];
+    o[4 * i + 2] *= corr[1];
+    o[4 * i + 3] *= corr[1];
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(160, 1)
+flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+                          const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ out, int H,
+                          int Tq, int Tk, float scale_log2, int causal) {
+  using L = Layout<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_smem = base;
+  const uint32_t q_full = base + L::kBarOffset;
+  auto full_bar = [&](int s) { return q_full + 8u * (1 + s); };
+  auto empty_bar = [&](int s) { return q_full + 8u * (1 + kStages + s); };
+  auto k_smem = [&](int s) { return base + L::kQBytes + static_cast<uint32_t>(s * L::kStageBytes); };
+
+  const int q0 = blockIdx.x * kBM;
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const int k_end = causal ? min(Tk, q0 + kBM) : Tk;
+  const int n_tiles = (k_end + kBN - 1) / kBN;
+  const int warp = threadIdx.x >> 5;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_bar(s), 1);
+      mbar_init(empty_bar(s), 4);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4) {  // producer warp: one thread issues every copy
+    if ((threadIdx.x & 31) == 0) {
+      mbar_expect_tx(q_full, L::kQBytes);
+      for (int c = 0; c < L::kBoxes; ++c) tma_load(q_smem + c * kBM * 128, &qmap, q_full, 64 * c, q0, h, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kStages;
+        if (t >= kStages) mbar_wait(empty_bar(s), ((t / kStages) + 1) & 1);
+        mbar_expect_tx(full_bar(s), L::kStageBytes);
+        const uint32_t ks = k_smem(s), vs = ks + L::kTileBytes;
+        for (int c = 0; c < L::kBoxes; ++c) {
+          tma_load(ks + c * kBN * 128, &kmap, full_bar(s), 64 * c, t * kBN, h, b);
+          tma_load(vs + c * kBN * 128, &vmap, full_bar(s), 64 * c, t * kBN, h, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup: query rows q0 + [0, 64); this thread holds rows r
+  // and r + 8 (r = 16 * warp + lane / 4), and in each 8-column chunk of an
+  // accumulator the two columns 2 * (lane % 4) + {0, 1}
+  const int lane = threadIdx.x & 31;
+  const int row0 = q0 + 16 * warp + (lane >> 2);
+  const int col = 2 * (lane & 3);
+  auto edge = [&](int t) { return t * kBN + kBN > Tk || (causal && t * kBN + kBN - 1 > q0); };
+  auto k_desc = [&](uint32_t ks, int kk) {  // step kk of 16 columns: 32 bytes into a 128-byte row
+    return sw128_desc(ks + (kk >> 2) * kBN * 128 + (kk & 3) * 32, 16, 1024);
+  };
+  // V (keys, D) is MN-major: 8 keys of 128 bytes per swizzle atom (stride
+  // 1024), the second 64 columns one box further (leading offset)
+  auto v_desc = [&](uint32_t vs, int j) { return sw128_desc(vs + j * 16 * 128, kBN * 128, 1024); };
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, corr[2];
+  uint32_t pa[4][4];
+
+  mbar_wait(q_full, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % kStages;
+    const uint32_t ks = k_smem(s), vs = ks + L::kTileBytes;
+    mbar_wait(full_bar(s), (t / kStages) & 1);
+    // S = Q K^T over D in steps of 16 columns
+    float sc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    fence_regs(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(sc, sw128_desc(q_smem + (kk >> 2) * kBM * 128 + (kk & 3) * 32, 16, 1024), k_desc(ks, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    softmax_tile(sc, m, l, corr, pa, edge(t), t * kBN, Tk, causal, row0, col, scale_log2);
+    rescale<D>(o, corr);
+    // O += P V over the tile's keys in steps of 16
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wgmma_pv<D>(o, pa[j], v_desc(vs, j));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    if (lane == 0) mbar_arrive(empty_bar(s));
+  }
+
+  float l0 = l[0], l1 = l[1];
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float lim0 = fmaxf(l0, 1e-30f), lim1 = fmaxf(l1, 1e-30f);
+  __nv_bfloat16* ob = out + static_cast<long long>(bh) * Tq * D;
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    if (row0 < Tq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<long long>(row0) * D + 8 * i + col) =
+          __floats2bfloat162_rn(o[4 * i] / lim0, o[4 * i + 1] / lim0);
+    if (row0 + 8 < Tq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<long long>(row0 + 8) * D + 8 * i + col) =
+          __floats2bfloat162_rn(o[4 * i + 2] / lim1, o[4 * i + 3] / lim1);
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return static_cast<EncodeTiled>(nullptr);
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// Tensor map of a (B, H, T, D) bf16 head view with element strides (sb, sh,
+// st, 1): dims {D, T, H, B}, boxes of 64 columns x `rows` rows, 128-byte swizzle,
+// zero fill past each edge.
+bool head_map(CUtensorMap* map, const void* ptr, int B, int H, int T, int D, long long sb, long long sh,
+              long long st, int rows) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(T), static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st) * 2, static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* out, int B, int H, int Tq, int Tk, Strides qs,
+           Strides ks, Strides vs, float scale, int causal, cudaStream_t stream) {
+  using L = Layout<D>;
+  CUtensorMap qmap, kmap, vmap;
+  if (!head_map(&qmap, q, B, H, Tq, D, qs.b, qs.h, qs.t, kBM) ||
+      !head_map(&kmap, k, B, H, Tk, D, ks.b, ks.h, ks.t, kBN) || !head_map(&vmap, v, B, H, Tk, D, vs.b, vs.h, vs.t, kBN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = flash_attention_tc_kernel<D>;
+  constexpr int smem = L::kBytes + 1024;  // + the slack to align the base to 1024 bytes
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid((Tq + kBM - 1) / kBM, B * H);
+  kernel<<<grid, 160, smem, stream>>>(qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), H, Tq, Tk,
+                                                scale * 1.4426950408889634f, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dispatch(int D, const void* q, const void* k, const void* v, void* out, int B, int H, int Tq, int Tk,
+             Strides qs, Strides ks, Strides vs, float scale, int causal, cudaStream_t st) {
+  if (D == 64) return launch<64>(q, k, v, out, B, H, Tq, Tk, qs, ks, vs, scale, causal, st);
+  if (D == 128) return launch<128>(q, k, v, out, B, H, Tq, Tk, qs, ks, vs, scale, causal, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace tc
+}  // namespace
+
 // C entry point, bound with ctypes. q (B, H, Tq, D), k and v (B, H, Tk, D) with
 // the given element strides of their batch, head and time axes and a
 // contiguous last axis; out (B, H, Tq, D) contiguous; one element type (dtype
-// 0: bf16, 1: f32). Shapes and alignment are checked by the Python wrapper
+// 0: bf16, the tensor-core kernel; 1: f32, the CUDA-core kernel).
+// Shapes and alignment are checked by the Python wrapper
 // (s2s_tpu_torch/ops/flash_attention.py): D in {64, 128}, Tq, Tk >= 1, base
 // pointers 16-byte aligned and strides multiples of 16 bytes. Returns the
 // cudaError_t of the launch (cudaErrorMisalignedAddress for a layout the
-// 16-byte loads cannot take).
+// 16-byte loads or the tensor maps cannot take, cudaErrorInvalidValue for a
+// tensor map the driver refuses).
 extern "C" int s2s_flash_attention(const void* q, const void* k, const void* v, void* out, int B,
                                    int H, int Tq, int Tk, int D, long long qsb, long long qsh,
                                    long long qst, long long ksb, long long ksh, long long kst,
@@ -360,6 +743,14 @@ extern "C" int s2s_flash_attention(const void* q, const void* k, const void* v, 
     return static_cast<int>(cudaErrorMisalignedAddress);
   const Strides qs{qsb, qsh, qst}, ks{ksb, ksh, kst}, vs{vsb, vsh, vst};
   auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_d<__nv_bfloat16>(D, q, k, v, out, B, H, Tq, Tk, qs, ks, vs, scale, causal, st);
+  if (dtype == 0) return tc::dispatch(D, q, k, v, out, B, H, Tq, Tk, qs, ks, vs, scale, causal, st);
   return dispatch_d<float>(D, q, k, v, out, B, H, Tq, Tk, qs, ks, vs, scale, causal, st);
+}
+
+// The tensor-core kernel's tiles, for the wrapper to report: queries per
+// block, keys per K/V tile, K/V stages.
+extern "C" void s2s_flash_attention_tiles(int* out) {
+  out[0] = tc::kBM;
+  out[1] = tc::kBN;
+  out[2] = tc::kStages;
 }

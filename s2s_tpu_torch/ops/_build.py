@@ -111,12 +111,16 @@ def load() -> ctypes.CDLL:
             lib.s2s_int4_matmul.restype = i32
             lib.s2s_decode_attention.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
                                                  i32, i32, i32, i32, i32, i32, i32,
-                                                 ctypes.c_float, ptr]
+                                                 ctypes.c_float, ctypes.POINTER(i32), ptr]
             lib.s2s_decode_attention.restype = i32
+            lib.s2s_smem_optin.argtypes = [i32]
+            lib.s2s_smem_optin.restype = i32
             i64 = ctypes.c_longlong
             lib.s2s_flash_attention.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, *[i64] * 9,
                                                 i32, i32, ctypes.c_float, ptr]
             lib.s2s_flash_attention.restype = i32
+            lib.s2s_flash_attention_tiles.argtypes = [ctypes.POINTER(i32)]
+            lib.s2s_flash_attention_tiles.restype = None
             lib.s2s_log_mel.argtypes = [ptr, i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
             lib.s2s_log_mel.restype = i32
             _lib = lib

@@ -11,6 +11,13 @@ carries the serving programs' attention, which the JAX package runs in XLA
 - :func:`decode_attention` is the Pallas contract: it writes the new K/V slot
   in place at ``pos`` and attends keys ``<= pos``, i.e. the tail form with
   ``cache_len = pos`` and a one-key tail.
+- The kernel runs one thread-block cluster of C CTAs per (row, KV head);
+  :func:`launch_plan` picks C from (B, KV), the SM count and the shared
+  memory a CTA's keys need, stages keys that do not fit at once through a
+  ring of tiles, and lays out the CTA's shared memory; :func:`split_ranges`
+  gives each CTA its keys.
+  The CTAs combine their softmax statistics and partial PV sums through
+  distributed shared memory, in one launch and in a fixed order.
 - A tensor on the CPU takes the plain PyTorch version
   (:func:`concat_attention_reference`, a transcription of ``_concat_attention``);
   a CUDA tensor launches the kernel or raises.  There is no fallback.
@@ -24,6 +31,9 @@ call needs no host sync.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
+from dataclasses import dataclass
 
 import torch
 
@@ -32,7 +42,109 @@ from s2s_tpu_torch.ops import _build
 HEAD_DIMS = (64, 128)
 MAX_GROUP = 8
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
-_CUDA_ERROR_INVALID_VALUE = 1
+#: cluster sizes the kernel takes (CTAs per (row, KV head))
+CLUSTER_SIZES = (1, 2, 4, 8)
+#: keys per staged tile when a CTA's keys do not fit its shared memory at once
+TILE_ROWS = 64
+_WARPS = 8  # the kernel's warps per CTA
+
+
+@dataclass(frozen=True)
+class Plan:
+    """One launch of the kernel: ``cluster`` CTAs per (row, KV head), each
+    holding at most ``rows_max`` keys, staged ``tile_rows`` at a time through
+    ``stages`` tiles of K and of V; then the byte offsets of the regions of a
+    CTA's dynamic shared memory (``Plan`` in ``csrc/decode_attention.cu``,
+    which takes them as they are) and its total ``bytes``."""
+    cluster: int
+    rows_max: int
+    tile_rows: int
+    stages: int
+    part: int
+    stat: int
+    red: int
+    sc: int
+    k: int
+    v: int
+    bytes: int
+
+    @staticmethod
+    def of(cluster: int, g: int, hd: int, esize: int, rows_max: int, tile_rows: int, stages: int) -> "Plan":
+        """The layout: 2 mbarriers per stage; the CTA's partial PV, f32
+        [g][hd]; the softmax statistics (its own and the cluster's m, l for up
+        to 8 heads); the per-warp sums, f32 [warps][g][hd]; the scores, f32
+        [g][rows_max rounded up to 4]; the K ring, then the V ring, each of
+        ``stages`` tiles of ``tile_rows`` rows.  Every offset is a multiple
+        of 16 bytes (hd is 64 or 128), as the bulk copies need."""
+        part = 16 * stages
+        stat = part + 4 * g * hd
+        red = stat + 4 * 4 * MAX_GROUP
+        sc = red + 4 * _WARPS * g * hd
+        k = sc + 4 * g * (-(-rows_max // 4) * 4)
+        v = k + stages * tile_rows * hd * esize
+        return Plan(cluster, rows_max, tile_rows, stages, part, stat, red, sc, k, v,
+                    v + stages * tile_rows * hd * esize)
+
+
+def launch_plan(b: int, kv: int, t: int, n: int, g: int, hd: int, esize: int, sms: int, smem_limit: int) -> Plan:
+    """The kernel's launch for (B, KV, T, n) caches and tails of group size g.
+
+    C starts at the smallest of :data:`CLUSTER_SIZES` with ``b * kv * C >=
+    sms`` (the grid fills the card; 8 at most).  From there the first C whose
+    CTA holds its whole share of the ``t + n`` keys in half of *smem_limit*
+    (two CTAs per SM, so one's copies overlap the other's work), else in all
+    of it, takes them in one tile.  Keys that fit at no C stream through a
+    ring of :data:`TILE_ROWS`-key tiles: two stages at the first C whose
+    scores and ring fit half the limit, else one stage there, else the same
+    in all of it.  It reads shapes only, never the lengths, so it needs no
+    host sync.  Raises only when even a one-stage ring at C 8 does not fit,
+    far beyond every model's ``max_seq_len``."""
+    fill = next((c for c in CLUSTER_SIZES if b * kv * c >= sms), CLUSTER_SIZES[-1])
+    sizes = [c for c in CLUSTER_SIZES if c >= fill]
+    whole = [Plan.of(c, g, hd, esize, -(-(t + n) // c), -(-(t + n) // c), 1) for c in sizes]
+    rings = [Plan.of(c, g, hd, esize, -(-(t + n) // c), TILE_ROWS, stages) for stages in (2, 1) for c in sizes]
+    for plans in (whole, rings):
+        for limit in (smem_limit // 2, smem_limit):
+            fits = [p for p in plans if p.bytes <= limit]
+            if fits:
+                return fits[0]
+    raise ValueError(f"decode attention: the scores of {t + n} keys of {g} heads do not fit "
+                     f"{CLUSTER_SIZES[-1]} CTAs' shared memory ({smem_limit} bytes each)")
+
+
+def split_ranges(nk: int, c: int) -> list[tuple[int, int]]:
+    """The keys [start, stop) of each CTA of a row's cluster: CTA r takes
+    ``[r * ceil(nk / c), min(nk, (r + 1) * ceil(nk / c)))`` of the row's
+    ``nk = cache_len + tail_len`` valid keys (cache keys first), so the split
+    depends on nk and c alone and equal rows split alike."""
+    chunk = -(-nk // c)
+    return [(min(nk, r * chunk), min(nk, (r + 1) * chunk)) for r in range(c)]
+
+
+_devices: dict[int, tuple[int, int]] = {}
+
+
+def _device_limits(device: torch.device) -> tuple[int, int]:
+    """(SM count, shared memory a block may opt in to) of a CUDA device."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _devices:
+        optin = _build.load().s2s_smem_optin(index)
+        if optin <= 0:
+            raise RuntimeError(f"decode attention: shared-memory query of cuda:{index} failed: cudaError {-optin}")
+        _devices[index] = (torch.cuda.get_device_properties(index).multi_processor_count, optin)
+    return _devices[index]
+
+
+@functools.lru_cache(maxsize=256)
+def _launch_args(b: int, kv: int, t: int, n: int, g: int, hd: int, esize: int, sms: int,
+                 smem_limit: int) -> tuple[Plan, ctypes.Array]:
+    plan = launch_plan(b, kv, t, n, g, hd, esize, sms, smem_limit)
+    return plan, (ctypes.c_int * 11)(*dataclasses.astuple(plan))
+
+
+def device_plan(b: int, kv: int, t: int, n: int, g: int, hd: int, esize: int, device: torch.device) -> Plan:
+    """:func:`launch_plan` for a CUDA device's SM count and shared memory."""
+    return _launch_args(b, kv, t, n, g, hd, esize, *_device_limits(device))[0]
 
 
 def concat_attention_reference(q, ck, cv, tk, tv, cache_len, tail_len) -> torch.Tensor:
@@ -95,7 +207,8 @@ def concat_attention(q, ck, cv, tk, tv, cache_len, tail_len) -> torch.Tensor:
     """(B, H, hd) attention of each row's query over its valid cache and tail
     keys.  CPU tensors take :func:`concat_attention_reference`; CUDA tensors
     launch ``csrc/decode_attention.cu`` on the current stream (built at first
-    use) and raise on any shape, type, layout or launch error."""
+    use) as :func:`launch_plan` plans it, and raise on any
+    shape, type, layout or launch error."""
     if q.device.type == "cpu":
         return concat_attention_reference(q, ck, cv, tk, tv, cache_len, tail_len)
     if q.device.type != "cuda":
@@ -103,20 +216,19 @@ def concat_attention(q, ck, cv, tk, tv, cache_len, tail_len) -> torch.Tensor:
     _check(q, ck, cv, tk, tv, cache_len, tail_len)
     b, h, hd = q.shape
     kv, t, n = ck.shape[1], ck.shape[2], tk.shape[2]
+    plan, plan_args = _launch_args(b, kv, t, n, h // kv, hd, q.element_size(), *_device_limits(q.device))
     lib = _build.load()
     with torch.cuda.device(q.device):
         out = torch.empty_like(q)
         err = lib.s2s_decode_attention(
             q.data_ptr(), ck.data_ptr(), cv.data_ptr(), tk.data_ptr(), tv.data_ptr(),
             cache_len.data_ptr(), tail_len.data_ptr(), out.data_ptr(),
-            b, h, kv, t, n, hd, _DTYPES[q.dtype], ctypes.c_float(hd ** -0.5),
+            b, h, kv, t, n, hd, _DTYPES[q.dtype], ctypes.c_float(hd ** -0.5), plan_args,
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
-        hint = ("; a block holds G*(T + n + 33*hd) f32 of shared memory, which may pass the "
-                "card's limit" if err == _CUDA_ERROR_INVALID_VALUE else "")
         raise RuntimeError(f"decode attention kernel launch failed: cudaError {err} "
-                           f"(B={b}, H={h}, KV={kv}, T={t}, n={n}, hd={hd}){hint}")
+                           f"(B={b}, H={h}, KV={kv}, T={t}, n={n}, hd={hd}, {plan})")
     _build.count_launch(concat_attention)
     return out
 

@@ -4,19 +4,25 @@ The port of the TPU Pallas kernel ``s2s_tpu/ops/pallas_attention.py::flash_atten
 as a hand-written CUDA kernel for Hopper (``csrc/flash_attention.cu``, whose
 header says what bounds it and how the design answers that).  It computes
 ``softmax(q k^T * scale) v`` with f32 logits, a running max and sum per query
-row, p kept in f32, and one division at the end; the output is in q's dtype.
+row, and one division at the end; the output is in q's dtype.
 
+- bf16 takes the tensor-core kernel: one block per query tile of a head,
+  TMA copies of Q and of K/V tiles through a ring of shared-memory stages
+  (:func:`tensor_core_tiles`), both products by ``wgmma``, p rounded to
+  bf16 before PV (l summed from the f32 p).  f32 takes the CUDA-core
+  kernel, p in f32.
 - q (B, H, Tq, D); k, v (B, H, Tk, D); GQA callers repeat KV heads first.
 - The Pallas kernel needs Tq and Tk to be multiples of its 128-row tiles;
-  the CUDA kernel masks a ragged last tile itself (keys >= Tk score -inf,
-  query rows >= Tq are not written), so any Tq, Tk >= 1 is taken.  Head dims
-  64 and 128; the last axis must be contiguous (other strides are passed to
-  the kernel, so the encoder's transposed head views need no copy), and the
-  kernel's 16-byte loads want 16-byte aligned operands whose strides are
-  whole multiples of 16 bytes (as every projection's head view is).
+  the CUDA kernels mask a ragged last tile themselves (keys >= Tk score
+  -inf, query rows >= Tq are not written), so any Tq, Tk >= 1 is taken.  Head
+  dims 64 and 128; the last axis must be contiguous (other strides are passed
+  to the kernel, so the encoder's transposed head views need no copy), and
+  the operands must be 16-byte aligned with strides in whole multiples of 16
+  bytes (as every projection's head view is): what the 16-byte loads and
+  the TMA tensor maps take.
 - A tensor on the CPU takes the plain PyTorch version
-  (:func:`flash_attention_reference`); a CUDA tensor launches the kernel or
-  raises.  There is no fallback.
+  (:func:`flash_attention_reference`, p in f32 as the Pallas kernel); a CUDA
+  tensor launches the kernel or raises.  There is no fallback.
 - ``flash_attention.launches`` counts kernel launches.
 """
 
@@ -30,6 +36,15 @@ from s2s_tpu_torch.ops import _build
 
 HEAD_DIMS = (64, 128)
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+
+
+def tensor_core_tiles() -> dict[str, int]:
+    """The bf16 kernel's tiles as ``csrc/flash_attention.cu`` defines them
+    (this builds the library): ``query_tile`` queries per block (one consumer
+    warpgroup), K/V tiles of ``key_tile`` keys through ``stages`` stages."""
+    out = (ctypes.c_int * 3)()
+    _build.load().s2s_flash_attention_tiles(out)
+    return dict(zip(("query_tile", "key_tile", "stages"), out))
 
 
 def use_flash_for(tq: int, d: int) -> bool:
@@ -77,7 +92,7 @@ def _check(q, k, v) -> None:
         raise ValueError(f"flash attention does not support head dim {d} (needs one of {HEAD_DIMS})")
     if any(x.stride(-1) != 1 for x in (q, k, v)):
         raise ValueError("flash attention wants the head dim contiguous (stride 1)")
-    vec = 16 // q.element_size()  # the kernel's 16-byte loads
+    vec = 16 // q.element_size()  # the 16-byte loads and the tensor maps' 16-byte strides
     if any(x.data_ptr() % 16 or any(st % vec for st in x.stride()[:3]) for x in (q, k, v)):
         raise ValueError(f"flash attention wants 16-byte aligned q, k, v with strides in multiples of {vec} "
                          f"elements; got strides {q.stride()}, {k.stride()}, {v.stride()}")
@@ -87,8 +102,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: b
                     scale: float | None = None) -> torch.Tensor:
     """(B, H, Tq, D) attention, contiguous, in q's dtype.  CPU tensors take
     :func:`flash_attention_reference`; CUDA tensors launch
-    ``csrc/flash_attention.cu`` on the current stream (built at first use)
-    and raise on any shape, type, layout or launch error."""
+    ``csrc/flash_attention.cu`` on the current stream (built at first use):
+    the tensor-core kernel for bf16, the CUDA-core kernel for f32; any
+    shape, type, layout or launch error raises."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal, scale)
     if q.device.type != "cuda":

@@ -15,10 +15,17 @@
 - The wrapper refuses what the kernel cannot take (dtype, shape, head dim,
   layout, the 16-byte alignment of its loads); the CUDA kernel runs only on
   the card (``cuda`` marker).
+- An emulation of the bf16 tensor-core kernel's numerics (64-key tiles, an
+  online max, p rounded to bf16 before PV, l summed from the f32 p) stays
+  within ``chip_smoke.py``'s bound, 2 bf16 ulps of max|plain|, at its 10
+  encoder shapes: the margin the kernel's rounding leaves, known before the
+  card runs it.
 """
 
 import math
 import os
+import re
+from pathlib import Path
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
@@ -123,6 +130,54 @@ def test_kernel_checks_reject_what_the_kernel_does_not_take():
         fa.flash_attention(*(x.to("meta") for x in (q, k, v)))
 
 
+#: the tensor-core kernel's keys per tile, read from its source (``kBN``)
+_KEY_TILE = int(re.search(r"constexpr int kBN = (\d+);", (Path(fa.__file__).parents[1] / "csrc" /
+                                                          "flash_attention.cu").read_text()).group(1))
+
+
+def _kernel_emulation(q, k, v, causal):
+    """The bf16 kernel's arithmetic in f32 torch: per key tile, raw
+    scores of the bf16 inputs, the new row max, p = 2^(s * scale * log2 e -
+    m * scale * log2 e), l from the f32 p, the output rescaled and p
+    rounded to bf16 before PV; one division at the end, then bf16."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    tq, tk, d = q.shape[2], k.shape[2], q.shape[3]
+    sl2 = d ** -0.5 * math.log2(math.e)
+    m = torch.full(q.shape[:3], float("-inf"))
+    l = torch.zeros(q.shape[:3])
+    o = torch.zeros(q.shape)
+    rows = torch.arange(tq)[:, None]
+    for k0 in range(0, tk, _KEY_TILE):
+        s = qf @ kf[:, :, k0:k0 + _KEY_TILE].transpose(-1, -2)
+        if causal:
+            s = s.masked_fill(torch.arange(k0, k0 + s.shape[-1])[None, :] > rows, float("-inf"))
+        mx = torch.maximum(m, s.amax(-1))
+        mu = torch.where(mx == float("-inf"), torch.zeros_like(mx), mx * sl2)
+        corr = torch.exp2(m * sl2 - mu)
+        p = torch.exp2(s * sl2 - mu[..., None])
+        l = l * corr + p.sum(-1)
+        o = o * corr[..., None] + p.to(torch.bfloat16).float() @ vf[:, :, k0:k0 + _KEY_TILE]
+        m = mx
+    return (o / l.clamp_min(1e-30)[..., None]).to(torch.bfloat16)
+
+
+#: chip_smoke.py's FLASH_SHAPES: (heads, positions, causal), head dim 64
+_CHIP_FLASH_SHAPES = [(20, t, False) for t in (50, 100, 150, 250, 400, 600, 750, 1500)] + [(6, 400, False),
+                                                                                         (20, 1500, True)]
+
+
+@pytest.mark.parametrize("h,t,causal", _CHIP_FLASH_SHAPES)
+def test_bf16_kernel_rounding_stays_within_the_chip_bound(h, t, causal):
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16) for x in _qkv(1, h, t, t, 64, seed=t + causal))
+    got = _kernel_emulation(q, k, v, causal).float()
+    err, bound = 0.0, 0.0
+    for h0 in range(0, h, 4):  # the plain version a few heads at a time: T x T scores per head
+        want = fa.flash_attention_reference(q[:, h0:h0 + 4], k[:, h0:h0 + 4], v[:, h0:h0 + 4], causal=causal).float()
+        err = max(err, (got[:, h0:h0 + 4] - want).abs().max().item())
+        bound = max(bound, want.abs().max().item())
+    assert err <= 2 * _bf16_ulp(bound), (err, 2 * _bf16_ulp(bound))
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -132,7 +187,9 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("h,tq,tk,d,causal", [(20, 50, 50, 64, False), (6, 400, 400, 64, False),
-                                              (4, 130, 200, 128, False), (2, 256, 256, 64, True)])
+                                              (4, 130, 200, 128, False), (2, 256, 256, 64, True),
+                                              (20, 1500, 1500, 64, False), (20, 1500, 1500, 64, True),
+                                              (6, 333, 400, 128, False), (3, 77, 77, 128, True)])
 def test_cuda_kernel_matches_plain(cuda_device, h, tq, tk, d, causal):
     q, k, v = (torch.from_numpy(x).to(cuda_device, torch.bfloat16) for x in _qkv(1, h, tq, tk, d))
     before = fa.flash_attention.launches
@@ -141,3 +198,12 @@ def test_cuda_kernel_matches_plain(cuda_device, h, tq, tk, d, causal):
     torch.cuda.synchronize()
     assert fa.flash_attention.launches == before + 1
     assert (got.float() - want.float()).abs().max().item() <= 2 * _bf16_ulp(want.float().abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_kernel_gives_a_duplicated_head_equal_bits(cuda_device, d):
+    q, k, v = (torch.from_numpy(x).to(cuda_device, torch.bfloat16) for x in _qkv(1, 6, 400, 400, d, seed=2))
+    got = fa.flash_attention(*(torch.cat([x, x[:, :1]], dim=1) for x in (q, k, v)))
+    torch.cuda.synchronize()
+    assert torch.equal(got[:, 6], got[:, 0])
