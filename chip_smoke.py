@@ -9,8 +9,11 @@ Phases, each printed on its own line:
 3. each kernel against its plain PyTorch version at the serving path's
    shapes, in bf16, bound 2 bf16 ulps of max|plain|; device times of both,
    taken in turns (plain, kernel, kernel, plain) with CUDA graphs over
-   enough weight or cache copies to exceed the 50 MB L2: ``int8_matmul``,
-   then ``decode_attention`` (tail form at the SmolLM2-1.7B and Qwen3-TTS
+   enough weight or cache copies to exceed the 50 MB L2: ``int8_matmul``
+   (``weight_only_phase``: the launch plan printed at every row, a
+   duplicated row bit-equal, ``torch._weight_int8pack_mm`` and the bf16
+   ``torch.matmul`` of the dequantized weight timed beside it, and the other
+   regime's time at up to 8 rows), then ``decode_attention`` (tail form at the SmolLM2-1.7B and Qwen3-TTS
    talker shapes and the talker at its max_seq_len 4096, whose keys stream
    through a ring of tiles, with ``F.scaled_dot_product_attention`` timed
    beside it at every shape and the launch plan (cluster size, tile rows,
@@ -31,7 +34,8 @@ Phases, each printed on its own line:
    ``--sessions 4`` flags (batched LM, TTS and Parakeet engines, warmed at
    build): four WebSocket clients send one text turn each at the same
    moment and must each get audio deltas and response.done, then one audio
-   turn; both kernels' launch counts over those turns must be > 0;
+   turn; both kernels' launch counts over those turns must be > 0 (the
+   weight-only kernels' launches are also printed by rows);
 7. one more concurrent 4-session round of that serve under
    ``torch.profiler`` (device activity only): the device's busy share
    between the round's first and last kernel, the kernels launched, and the
@@ -39,7 +43,9 @@ Phases, each printed on its own line:
 8. the W8A8-dynamic and packed-int4 kernels against their plain versions
    (``int8_matmul_dyn`` bit-equal at the int8 shapes x 8-64 rows, with
    ``torch._int_mm`` plus its epilogue timed beside it above 16 rows;
-   ``int4_matmul`` within 2 bf16 ulps at the code-predictor and LM shapes);
+   ``int4_matmul`` within 2 bf16 ulps at the code-predictor and LM shapes,
+   as ``weight_only_phase`` runs ``int8_matmul``, with tinygemm's
+   ``torch._weight_int4pack_mm`` as its library call);
 9. ``w8a8_microbench``, the port of ``scripts/microbench_w8a8.py``: the W8A8
    error against f32 at 16 rows x 2048 x 8192, then its seven-linear,
    24-layer, 8-step mix at 16 rows through the W8A8 kernel and through the
@@ -50,7 +56,8 @@ Phases, each printed on its own line:
    --tts_quantize int8+cp4``, after the first has shut down: one concurrent
    round of text turns, each answered with audio and response.done; the
    kernels' launches from the build (engine warm-up included) to the end of
-   the round, with ``int8_matmul_dyn`` and ``int4_matmul`` each > 0.
+   the round, with ``int8_matmul_dyn`` and ``int4_matmul`` each > 0, and the
+   round's weight-only launches by rows.
 
 12. ``flash_attention`` against its plain version in bf16 at the distil-
    large-v3 encoder's shapes (20 heads of 64 x every Whisper duration
@@ -173,7 +180,9 @@ ATTN_HEADLINE = ("smollm2-1.7b", 4, 6)
 #: (K, N) of the int8 linears: SmolLM2-1.7B, then the Qwen3-TTS talker and
 #: code predictor
 INT8_SHAPES = [(2048, 2048), (2048, 8192), (8192, 2048), (2048, 1024), (2048, 6144), (6144, 2048)]
-INT8_ROWS = [1, 2, 17, 64]
+#: rows: single-session decode, 2, the 4-session step, the width buckets 8
+#: and 16, 17 (past a bucket), the 32- and 64-token prompt buckets
+INT8_ROWS = [1, 2, 4, 8, 16, 17, 32, 64]
 #: the shape whose times stand in the JSON line: a talker/code-predictor
 #: gate or up projection at decode (1 row)
 HEADLINE = (1, 2048, 6144)
@@ -186,7 +195,7 @@ DYN_HEADLINE = (32, 2048, 8192)
 #: (K, N) of the int4 linears: the Qwen3-TTS code predictor, then the
 #: SmolLM2-1.7B shapes it does not share
 INT4_SHAPES = [(2048, 2048), (2048, 1024), (2048, 6144), (6144, 2048), (2048, 8192), (8192, 2048)]
-INT4_ROWS = [1, 2, 4, 16, 64]
+INT4_ROWS = [1, 2, 4, 8, 16, 32, 64]
 #: the int4 shape in the JSON line: a code-predictor gate/up projection at
 #: the 4-session steady step
 INT4_HEADLINE = (4, 2048, 6144)
@@ -261,48 +270,117 @@ def device_ms(fn, calls: int) -> float:
     return start.elapsed_time(end) / (replays * calls)
 
 
-def kernel_phase(dev: torch.device) -> dict:
-    from s2s_tpu_torch.ops import int8_matmul as mm
+def _weight_only_library(fmt: str, q: torch.Tensor, scale: torch.Tensor):
+    """The one PyTorch call computing a weight-only linear, for timing beside
+    the kernel (the port never calls it): ``torch._weight_int8pack_mm``
+    (weight (N, K) int8, bf16 scales) or ``torch._weight_int4pack_mm``
+    (tinygemm: the nibbles as unsigned values + 8, packed by
+    ``torch._convert_weight_to_int4pack``, the channel scale as group scales
+    of 256 rows with zero points 0).  Returns (call(x) -> out, operand
+    bytes it reads, or raises where the card's PyTorch does not run it)."""
+    from s2s_tpu_torch.ops import int4_matmul as m4
 
-    gen = torch.Generator(device=dev).manual_seed(0)
+    if fmt == "int8":
+        w_nk, s_bf = q.t().contiguous(), scale.to(torch.bfloat16)
+        return lambda x: torch._weight_int8pack_mm(x, w_nk, s_bf)
+    lo, hi = m4.unpack_nibbles(q)
+    u = (torch.cat([lo, hi]) + 8).t().contiguous()  # (N, K), 0..15
+    packed = torch._convert_weight_to_int4pack((u[:, ::2] << 4 | u[:, 1::2]).to(torch.uint8), 8)
+    k, n = u.shape[1], u.shape[0]
+    groups = scale.expand(k // 256, n)
+    sz = torch.stack([groups, torch.zeros_like(groups)], dim=-1).to(torch.bfloat16).contiguous()
+    return lambda x: torch._weight_int4pack_mm(x, packed, 256, sz)
+
+
+def weight_only_phase(dev: torch.device, fmt: str) -> dict:
+    """``int8_matmul`` or ``int4_matmul`` against its plain version at the
+    served shapes x rows, within 2 bf16 ulps of max|plain|, with the launch
+    plan printed, a duplicated row bit-equal to the row it copies, and device
+    times (weights cycled past the L2) of the kernel, the plain version, the
+    library call (``_weight_only_library``; null with its error where the
+    card's PyTorch does not run it) and ``torch.matmul`` with the
+    dequantized bf16 weight (the unquantized model's linear); at rows the
+    CUDA-core regime takes (up to 8), also the other regime's time, the
+    crossover that sets the cutoff."""
+    from s2s_tpu_torch.ops import int4_matmul as m4
+    from s2s_tpu_torch.ops import int8_matmul as mm
+    from s2s_tpu_torch.ops import weight_only as wo
+
+    int8 = fmt == "int8"
+    planes = 1 if int8 else 2
+    wrapper, ref = (mm.int8_matmul, mm.int8_matmul_reference) if int8 else (m4.int4_matmul, m4.int4_matmul_reference)
+    entry = "s2s_int8_matmul" if int8 else "s2s_int4_matmul"
+    shapes, row_counts, headline_key = (INT8_SHAPES, INT8_ROWS, HEADLINE) if int8 else (INT4_SHAPES, INT4_ROWS,
+                                                                                        INT4_HEADLINE)
+    gen = torch.Generator(device=dev).manual_seed(0 if int8 else 7)
     rows, max_err, headline = [], 0.0, None
-    for k, n in INT8_SHAPES:
-        copies = max(2, -(-2 * L2_BYTES // (k * n)))
-        qs = [torch.randint(-127, 128, (k, n), generator=gen, device=dev, dtype=torch.int16).to(torch.int8)
+    for k, n in shapes:
+        weight_bytes = k * n // planes
+        copies = max(2, -(-2 * L2_BYTES // weight_bytes))
+        low = -127 if int8 else -128
+        qs = [torch.randint(low, 128, (k // planes, n), generator=gen, device=dev, dtype=torch.int16).to(torch.int8)
               for _ in range(copies)]
         scale = torch.rand(n, generator=gen, device=dev) * 0.01 + 1e-4
-        for b in INT8_ROWS:
+        try:
+            library = [_weight_only_library(fmt, q, scale) for q in qs]
+            library_error = None
+        except Exception as e:  # noqa: BLE001 - the yardstick's absence is a result
+            library, library_error = None, f"{type(e).__name__}: {e}"[:300]
+        dense = [((qs[i % copies] if int8 else torch.cat(m4.unpack_nibbles(qs[i % copies]))).float() * scale)
+                 .to(torch.bfloat16) for i in range(max(2, -(-2 * L2_BYTES // (2 * k * n))))]
+        for b in row_counts:
             x = torch.randn(b, k, generator=gen, device=dev).to(torch.bfloat16)
-            got = mm.int8_matmul(x, qs[0], scale)
-            want = mm.int8_matmul_reference(x, qs[0], scale)
+            plan = wo.device_plan(b, k, n, planes, dev)
+            got = wrapper(x, qs[0], scale)
+            want = ref(x, qs[0], scale)
             torch.cuda.synchronize()
-            check(got.shape == want.shape and got.dtype == torch.bfloat16, f"int8_matmul output {got.shape}")
+            check(got.shape == want.shape and got.dtype == torch.bfloat16, f"{fmt}_matmul output {got.shape}")
             err = (got.float() - want.float()).abs().max().item()
             tol = 2 * bf16_ulp(want.float().abs().max().item())
-            check(math.isfinite(err) and err <= tol, f"int8_matmul B={b} K={k} N={n}: |d|={err} > {tol}")
+            check(math.isfinite(err) and err <= tol, f"{fmt}_matmul B={b} K={k} N={n}: |d|={err} > {tol}")
             max_err = max(max_err, err)
+            if b > 1:  # a padded width bucket repeats rows: the copy must come out bit-equal
+                xd = x.clone()
+                xd[-1] = xd[0]
+                gotd = wrapper(xd, qs[0], scale)
+                torch.cuda.synchronize()
+                check(torch.equal(gotd[-1], gotd[0]), f"{fmt}_matmul B={b} K={k} N={n}: duplicated row differs")
 
             def plain(i):
-                mm.int8_matmul_reference(x, qs[i % copies], scale)
+                ref(x, qs[i % copies], scale)
 
             def kernel(i):
-                mm.int8_matmul(x, qs[i % copies], scale)
+                wrapper(x, qs[i % copies], scale)
 
-            calls = 2 * copies
-            times = [device_ms(f, calls) for f in (plain, kernel, kernel, plain)]
+            times = [device_ms(f, 2 * copies) for f in (plain, kernel, kernel, plain)]
             ms, plain_ms = (times[1] + times[2]) / 2, (times[0] + times[3]) / 2
-            bound_ms, bound_by = gemv_bound(b, k, n, k * n, BF16_FLOPS)
-            row = dict(B=b, K=k, N=n, max_abs_err=err, bound=tol, ms=ms, plain_ms=plain_ms,
-                       bound_ms=bound_ms, bound_by=bound_by,
-                       kernel_GBps=k * n / (ms * 1e-3) / 1e9, splits=mm.split_count(b, k, n, _sms(dev)))
-            phase("int8_matmul", **row)
+            bound_ms, bound_by = gemv_bound(b, k, n, weight_bytes, BF16_FLOPS)
+            library_ms = library_err = None
+            if library is not None:
+                try:
+                    library_err = (library[0](x).float() - want.float()).abs().max().item()
+                    library_ms = device_ms(lambda i: library[i % copies](x), 2 * copies)
+                except Exception as e:  # noqa: BLE001
+                    library_error = f"{type(e).__name__}: {e}"[:300]
+            bf16_ms = device_ms(lambda i: torch.matmul(x, dense[i % len(dense)]), 2 * len(dense))
+            row = dict(B=b, K=k, N=n, max_abs_err=err, bound=tol, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, library_ms=library_ms, library_max_abs_err=library_err,
+                       library_error=library_error, bf16_ms=bf16_ms,
+                       kernel_GBps=weight_bytes / (ms * 1e-3) / 1e9, plan=plan.describe(),
+                       duplicate_row_bitwise_equal=b > 1)
+            if b <= wo.ROW_TILES[-1]:  # both regimes can run: the crossover
+                sms, smem, clusters = wo.device_limits(dev)
+                other = wo.launch_plan(b, k, n, sms, smem, planes, regime=1 - plan.regime, clusters=dict(clusters))
+                row["other_regime"] = {"plan": other.describe(), "ms": device_ms(
+                    lambda i: wo.launch(entry, x, qs[i % copies], scale, planes, other), 2 * copies)}
+            phase(f"{fmt}_matmul", **row)
             rows.append(row)
-            if (b, k, n) == HEADLINE:
+            if (b, k, n) == headline_key:
                 headline = row
-        del qs
-    check(headline is not None, "headline shape measured")
-    return {"max_abs_err": max_err, "ms": headline["ms"], "plain_ms": headline["plain_ms"],
-            "bound_ms": headline["bound_ms"], "bound_by": headline["bound_by"], "library_ms": None, "rows": rows}
+        del qs, library, dense
+    check(headline is not None, f"{fmt}_matmul headline shape measured")
+    return {"max_abs_err": max_err, **{key: headline[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                                       "library_ms")}, "rows": rows}
 
 
 def _sms(dev: torch.device) -> int:
@@ -582,53 +660,6 @@ def int8_dyn_phase(dev: torch.device) -> dict:
                                                                    "library_ms")}}
 
 
-def int4_phase(dev: torch.device) -> dict:
-    """``int4_matmul`` against its plain version at the code-predictor and
-    LM shapes x 1-64 rows, within 2 bf16 ulps of max|plain|, packed weights
-    cycled past the L2; no single PyTorch call computes packed int4."""
-    from s2s_tpu_torch.ops import int4_matmul as m4
-    from s2s_tpu_torch.ops.int8_matmul import split_count
-
-    gen = torch.Generator(device=dev).manual_seed(7)
-    rows, max_err, headline = [], 0.0, None
-    for k, n in INT4_SHAPES:
-        copies = max(2, -(-2 * L2_BYTES // (k * n // 2)))
-        qs = [torch.randint(-128, 128, (k // 2, n), generator=gen, device=dev, dtype=torch.int16).to(torch.int8)
-              for _ in range(copies)]
-        scale = torch.rand(n, generator=gen, device=dev) * 0.01 + 1e-4
-        for b in INT4_ROWS:
-            x = torch.randn(b, k, generator=gen, device=dev).to(torch.bfloat16)
-            got = m4.int4_matmul(x, qs[0], scale)
-            want = m4.int4_matmul_reference(x, qs[0], scale)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            tol = 2 * bf16_ulp(want.float().abs().max().item())
-            check(got.shape == want.shape and math.isfinite(err) and err <= tol,
-                  f"int4_matmul B={b} K={k} N={n}: |d|={err} > {tol}")
-            max_err = max(max_err, err)
-
-            def plain(i):
-                m4.int4_matmul_reference(x, qs[i % copies], scale)
-
-            def kernel(i):
-                m4.int4_matmul(x, qs[i % copies], scale)
-
-            times = [device_ms(f, 2 * copies) for f in (plain, kernel, kernel, plain)]
-            ms, plain_ms = (times[1] + times[2]) / 2, (times[0] + times[3]) / 2
-            bound_ms, bound_by = gemv_bound(b, k, n, k * n // 2, BF16_FLOPS)
-            row = dict(B=b, K=k, N=n, max_abs_err=err, bound=tol, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                       bound_by=bound_by, kernel_GBps=k * n / 2 / (ms * 1e-3) / 1e9,
-                       splits=split_count(b, k // 2, n, _sms(dev)))
-            phase("int4_matmul", **row)
-            rows.append(row)
-            if (b, k, n) == INT4_HEADLINE:
-                headline = row
-        del qs
-    check(headline is not None, "int4_matmul headline shape measured")
-    return {"max_abs_err": max_err, "library_ms": None,
-            **{key: headline[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")}}
-
-
 def w8a8_microbench_phase(dev: torch.device) -> None:
     """The port of ``scripts/microbench_w8a8.py``: the W8A8 error against an
     f32 product at 16 rows x 2048 x 8192, then its mix (per step and layer,
@@ -730,6 +761,15 @@ def _launch_counters():
             "flash_attention": fa.flash_attention, "log_mel": log_mel.mel_power}
 
 
+def _launches_by_rows() -> dict[str, dict[int, int]]:
+    """The two weight-only kernels' launches since their row counts were
+    cleared, by the rows of the call."""
+    from s2s_tpu_torch.ops import int4_matmul as m4
+    from s2s_tpu_torch.ops import int8_matmul as mm
+
+    return {fn.__name__: dict(sorted(fn.rows.items())) for fn in (mm.int8_matmul, m4.int4_matmul)}
+
+
 def quant_serve_phase(dev: torch.device, card: list[str]) -> dict[str, int]:
     """The 4-session batched serve with ``--llm_quantize int8-dyn
     --tts_quantize int8+cp4``: build (engines warmed), then one concurrent
@@ -770,11 +810,14 @@ def quant_serve_phase(dev: torch.device, card: list[str]) -> dict[str, int]:
         check(server.started.wait(60), "server started")
         url = f"ws://127.0.0.1:{server.bound_port}/v1/realtime"
         before = {name: fn.launches for name, fn in counters.items()}
+        for name in ("int8_matmul", "int4_matmul"):
+            counters[name].rows.clear()
         t0 = time.perf_counter()
         rounds = asyncio.run(_concurrent_text_turns(url, SESSIONS))
         round_s = time.perf_counter() - t0
         torch.cuda.synchronize()
         launches = {name: fn.launches for name, fn in counters.items()}
+        by_rows = _launches_by_rows()
     finally:
         stop.set()
         manager.stop()
@@ -790,7 +833,7 @@ def quant_serve_phase(dev: torch.device, card: list[str]) -> dict[str, int]:
     check(in_round["int4_matmul"] > 0, f"the int4 kernel launched in the quantized round: {in_round}")
     phase("quant_serve", card=card, sessions=SESSIONS, flags=QUANT_FLAGS, build_s=build_s, warmup_s=warm["s"],
           round_s=round_s, text_turns=sessions, launches=launches, launches_warmup=warm["launches"],
-          launches_round=in_round)
+          launches_round=in_round, launches_round_by_rows=by_rows)
     return launches
 
 
@@ -946,6 +989,7 @@ def batched_serve_phase(dev: torch.device, card: list[str]) -> dict[str, int]:
     and power limit) is printed with the times."""
     from s2s_tpu_torch import builder, cli
     from s2s_tpu_torch.ops import decode_attention as da
+    from s2s_tpu_torch.ops import int4_matmul as m4
     from s2s_tpu_torch.ops import int8_matmul as mm
     from s2s_tpu_torch.registry import GLOBAL_MODEL_CACHE
 
@@ -973,12 +1017,15 @@ def batched_serve_phase(dev: torch.device, card: list[str]) -> dict[str, int]:
         check(server.started.wait(60), "server started")
         url = f"ws://127.0.0.1:{server.bound_port}/v1/realtime"
         mm.int8_matmul.launches = da.concat_attention.launches = 0  # count the measured turns only
+        mm.int8_matmul.rows.clear()
+        m4.int4_matmul.rows.clear()
         t0 = time.perf_counter()
         rounds = asyncio.run(_concurrent_text_turns(url, SESSIONS))
         round_s = time.perf_counter() - t0
         audio = asyncio.run(_session(url, _audio_turn(), _transcribed_and_settled, 600))
         torch.cuda.synchronize()
         launches = {"int8_matmul": mm.int8_matmul.launches, "decode_attention": da.concat_attention.launches}
+        by_rows = _launches_by_rows()
         trace = traced_round(url)
     finally:
         stop.set()
@@ -992,7 +1039,7 @@ def batched_serve_phase(dev: torch.device, card: list[str]) -> dict[str, int]:
     voice = _voice_summary(audio)
     check(all(v > 0 for v in launches.values()), f"both kernels launched in the batched serve: {launches}")
     phase("batched_serve", card=card, sessions=SESSIONS, build_s=build_s, warmup_s=warm["s"], round_s=round_s,
-          text_turns=sessions, voice_turn=voice, launches=launches)
+          text_turns=sessions, voice_turn=voice, launches=launches, launches_by_rows=by_rows)
     phase("trace", **trace)
     return launches
 
@@ -1023,7 +1070,7 @@ def traced_round(url: str) -> dict:
         entry[1] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     ours = {name: {"device_ms": ns / 1e6, "calls": n} for name, (ns, n) in by_name.items()
-            if any(k in name for k in ("decode_attention_kernel", "int8_gemv_kernel", "splitk_reduce_kernel"))}
+            if any(k in name for k in ("decode_attention_kernel", "weight_only_gemv_kernel", "weight_only_tc_kernel"))}
     return {"sessions": SESSIONS, "done_s": [d for _, d in replies],
             "audio_seconds": [pcm.size / 24_000 for pcm, _ in replies], "span_s": span_s,
             "device_busy_s": busy_ns / 1e9, "device_busy_share": busy_ns / 1e9 / span_s,
@@ -1354,7 +1401,7 @@ def main() -> int:
     path, _ = _build.build()
     phase("build", library=str(path.name), seconds=_build.build_seconds)
     with no_tf32():
-        int8 = kernel_phase(dev)
+        int8 = weight_only_phase(dev, "int8")
         attn = attention_phase(dev)
         tiny_parity_phase(dev)
         tiny_batched_parity_phase(dev)
@@ -1362,7 +1409,7 @@ def main() -> int:
     launches = batched_serve_phase(dev, smi)
     with no_tf32():
         dyn = int8_dyn_phase(dev)
-        int4 = int4_phase(dev)
+        int4 = weight_only_phase(dev, "int4")
         w8a8_microbench_phase(dev)
         tiny_quant_parity_phase(dev)
     quant_launches = quant_serve_phase(dev, smi)

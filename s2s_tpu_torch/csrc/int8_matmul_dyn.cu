@@ -20,10 +20,10 @@
 // How the design answers that (a simple, exact first version):
 // - Quantize: one block per row; the absmax is reduced through warp shuffles
 //   and shared memory, then every thread writes its slice of xq.
-// - Product: the W8A16 kernel's shape (csrc/int8_matmul.cu). A block owns 128
-//   columns (32 lanes x 4) and up to 8 rows; each warp walks K four rows at a
-//   time, loads a 4 x 4 byte tile of q (four coalesced 4-byte loads of one
-//   128-byte line each), transposes it with __byte_perm so each register holds
+// - Product: a block owns 128 columns (32 lanes x 4) and up to 8 rows; each
+//   warp walks K four rows at a time, loads a 4 x 4 byte tile of q (four
+//   coalesced 4-byte loads of one 128-byte line each), transposes it with
+//   __byte_perm so each register holds
 //   4 consecutive K of one column, and accumulates with __dp4a against 4
 //   packed bytes of xq. Sums stay int32 through the cross-warp reduction and
 //   the K split over blocks (int32 partials and a second pass: exact in any

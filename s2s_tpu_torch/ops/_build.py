@@ -4,7 +4,8 @@ Every ``csrc/*.cu`` file is compiled for ``sm_90a`` by its own ``nvcc``
 process, all started together, and the objects are linked into ONE shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds, not minutes).  The library lands in ``build/s2s_tpu_torch/`` at the repository
-root, named by a hash of the sources and flags, so an edited source is never
+root, named by a hash of the sources, the headers they share
+(``csrc/*.cuh``) and the flags, so an edited source or header is never
 served from a stale build.  Nothing happens at import: the first kernel call
 (or an explicit :func:`load`) builds.
 """
@@ -19,6 +20,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "s2s_tpu_torch"
@@ -53,7 +56,7 @@ def _sources() -> list[Path]:
 
 def _library_path() -> Path:
     digest = hashlib.sha256()
-    for src in _sources():
+    for src in sorted([*_sources(), *CSRC.glob("*.cuh")]):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
@@ -103,16 +106,18 @@ def load() -> ctypes.CDLL:
             path, _ = build()
             lib = ctypes.CDLL(str(path))
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.s2s_int8_matmul.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+            lib.s2s_int8_matmul.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, ctypes.POINTER(i32), ptr]
             lib.s2s_int8_matmul.restype = i32
             lib.s2s_int8_matmul_dyn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
             lib.s2s_int8_matmul_dyn.restype = i32
-            lib.s2s_int4_matmul.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+            lib.s2s_int4_matmul.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, ctypes.POINTER(i32), ptr]
             lib.s2s_int4_matmul.restype = i32
             lib.s2s_decode_attention.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
                                                  i32, i32, i32, i32, i32, i32, i32,
                                                  ctypes.c_float, ctypes.POINTER(i32), ptr]
             lib.s2s_decode_attention.restype = i32
+            lib.s2s_weight_only_clusters.argtypes = [i32, i32]
+            lib.s2s_weight_only_clusters.restype = i32
             lib.s2s_smem_optin.argtypes = [i32]
             lib.s2s_smem_optin.restype = i32
             i64 = ctypes.c_longlong
@@ -127,9 +132,25 @@ def load() -> ctypes.CDLL:
         return _lib
 
 
-def count_launch(wrapper) -> None:
+def count_launch(wrapper, rows: int | None = None) -> None:
     """Add one to ``wrapper.launches``, the count a kernel's wrapper keeps of
-    its launches.  Locked: the driver threads of several engines launch
-    concurrently."""
+    its launches, and, given *rows*, to ``wrapper.rows[rows]``.  Locked: the
+    driver threads of several engines launch concurrently."""
     with _count_lock:
         wrapper.launches += 1
+        if rows is not None:
+            wrapper.rows[rows] += 1
+
+
+_devices: dict[int, tuple[int, int]] = {}
+
+
+def device_limits(device) -> tuple[int, int]:
+    """(SM count, shared memory a block may opt in to) of a CUDA device."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _devices:
+        optin = load().s2s_smem_optin(index)
+        if optin <= 0:
+            raise RuntimeError(f"shared-memory query of cuda:{index} failed: cudaError {-optin}")
+        _devices[index] = (torch.cuda.get_device_properties(index).multi_processor_count, optin)
+    return _devices[index]

@@ -121,20 +121,6 @@ def split_ranges(nk: int, c: int) -> list[tuple[int, int]]:
     return [(min(nk, r * chunk), min(nk, (r + 1) * chunk)) for r in range(c)]
 
 
-_devices: dict[int, tuple[int, int]] = {}
-
-
-def _device_limits(device: torch.device) -> tuple[int, int]:
-    """(SM count, shared memory a block may opt in to) of a CUDA device."""
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    if index not in _devices:
-        optin = _build.load().s2s_smem_optin(index)
-        if optin <= 0:
-            raise RuntimeError(f"decode attention: shared-memory query of cuda:{index} failed: cudaError {-optin}")
-        _devices[index] = (torch.cuda.get_device_properties(index).multi_processor_count, optin)
-    return _devices[index]
-
-
 @functools.lru_cache(maxsize=256)
 def _launch_args(b: int, kv: int, t: int, n: int, g: int, hd: int, esize: int, sms: int,
                  smem_limit: int) -> tuple[Plan, ctypes.Array]:
@@ -144,7 +130,7 @@ def _launch_args(b: int, kv: int, t: int, n: int, g: int, hd: int, esize: int, s
 
 def device_plan(b: int, kv: int, t: int, n: int, g: int, hd: int, esize: int, device: torch.device) -> Plan:
     """:func:`launch_plan` for a CUDA device's SM count and shared memory."""
-    return _launch_args(b, kv, t, n, g, hd, esize, *_device_limits(device))[0]
+    return _launch_args(b, kv, t, n, g, hd, esize, *_build.device_limits(device))[0]
 
 
 def concat_attention_reference(q, ck, cv, tk, tv, cache_len, tail_len) -> torch.Tensor:
@@ -216,7 +202,7 @@ def concat_attention(q, ck, cv, tk, tv, cache_len, tail_len) -> torch.Tensor:
     _check(q, ck, cv, tk, tv, cache_len, tail_len)
     b, h, hd = q.shape
     kv, t, n = ck.shape[1], ck.shape[2], tk.shape[2]
-    plan, plan_args = _launch_args(b, kv, t, n, h // kv, hd, q.element_size(), *_device_limits(q.device))
+    plan, plan_args = _launch_args(b, kv, t, n, h // kv, hd, q.element_size(), *_build.device_limits(q.device))
     lib = _build.load()
     with torch.cuda.device(q.device):
         out = torch.empty_like(q)

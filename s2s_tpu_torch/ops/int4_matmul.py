@@ -2,7 +2,9 @@
 
 The port of the TPU Pallas kernel ``s2s_tpu/ops/int4_matmul.py::int4_matmul``
 as a hand-written CUDA kernel for Hopper (``csrc/int4_matmul.cu``, whose
-header says what bounds it and how the design answers that).
+header says what bounds it and how the design answers that): the weight-only
+template (``csrc/weight_only_matmul.cuh``) with two weight planes per packed
+row, planned by ``weight_only.launch_plan`` (:mod:`s2s_tpu_torch.ops.weight_only`).
 
 Packing (``s2s_tpu_torch.ops.quant``): row k of the packed (K/2, N) int8
 buffer holds original row k in its low nibble and row k + K/2 in its high
@@ -13,15 +15,18 @@ scale.
   PyTorch version (:func:`int4_matmul_reference`); a CUDA tensor launches the
   kernel or raises.  There is no fallback between the two.
 - :func:`supports` is the JAX package's routing contract, unchanged.
-- ``int4_matmul.launches`` counts kernel launches.
+- ``int4_matmul.launches`` counts kernel launches, ``int4_matmul.rows``
+  counts them by rows.
 """
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
-from s2s_tpu_torch.ops import _build
-from s2s_tpu_torch.ops.int8_matmul import MAX_ROWS, _sm_count, split_count
+from s2s_tpu_torch.ops import _build, weight_only
+from s2s_tpu_torch.ops.int8_matmul import MAX_ROWS
 
 
 def supports(b: int, k: int, n: int) -> bool:
@@ -68,8 +73,8 @@ def _check(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> None:
     if not supports(b, k, q.shape[1]):
         raise ValueError(f"int4_matmul does not support B={b}, K={k}, N={q.shape[1]} "
                          "(needs 1 <= B <= 64, K % 256 == 0, N % 128 == 0)")
-    if q.data_ptr() % 16 or x.data_ptr() % 4:
-        raise ValueError("int4_matmul wants 16-byte aligned q_packed and 4-byte aligned x")
+    if q.data_ptr() % 16 or x.data_ptr() % 16:
+        raise ValueError("int4_matmul wants 16-byte aligned q_packed and x")
 
 
 def int4_matmul(x: torch.Tensor, q_packed: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -77,32 +82,18 @@ def int4_matmul(x: torch.Tensor, q_packed: torch.Tensor, scale: torch.Tensor) ->
     (B, N) bf16.
 
     CPU tensors take :func:`int4_matmul_reference`.  CUDA tensors launch
-    ``csrc/int4_matmul.cu`` on the current stream and raise on any shape,
-    type, layout or launch error."""
+    ``csrc/int4_matmul.cu`` once on the current stream as
+    ``weight_only.launch_plan`` plans it, allocate only the output, and raise on any shape, type, layout
+    or launch error."""
     if x.device.type == "cpu":
         return int4_matmul_reference(x, q_packed, scale)
     if x.device.type != "cuda":
         raise ValueError(f"int4_matmul: unsupported device {x.device}")
     _check(x, q_packed, scale)
-    b, k = x.shape
-    n = q_packed.shape[1]
-    lib = _build.load()
-    with torch.cuda.device(x.device):
-        # the K split runs over the packed rows (each carries two K rows)
-        splits = split_count(b, k // 2, n, _sm_count(x.device.index or 0))
-        out = torch.empty((b, n), dtype=torch.bfloat16, device=x.device)
-        partial = (torch.empty((splits, b, n), dtype=torch.float32, device=x.device)
-                   if splits > 1 else None)
-        err = lib.s2s_int4_matmul(
-            x.data_ptr(), q_packed.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            partial.data_ptr() if partial is not None else None,
-            b, k, n, splits, torch.cuda.current_stream().cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"int4_matmul kernel launch failed: cudaError {err} "
-                           f"(B={b}, K={k}, N={n}, splits={splits})")
-    _build.count_launch(int4_matmul)
+    out = weight_only.launch("s2s_int4_matmul", x, q_packed, scale, planes=2)
+    _build.count_launch(int4_matmul, x.shape[0])
     return out
 
 
 int4_matmul.launches = 0
+int4_matmul.rows = collections.Counter()

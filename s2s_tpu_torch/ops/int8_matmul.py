@@ -3,7 +3,9 @@
 The ports of the TPU Pallas kernels ``s2s_tpu/ops/int8_matmul.py::int8_matmul``
 and ``::int8_matmul_dyn`` as hand-written CUDA kernels for Hopper
 (``csrc/int8_matmul.cu`` and ``csrc/int8_matmul_dyn.cu``, whose headers say
-what bounds each and how the design answers that).
+what bounds each and how the design answers that).  The W8A16 kernel is the
+weight-only template (``csrc/weight_only_matmul.cuh``) with one weight plane;
+``weight_only.launch_plan`` plans it (:mod:`s2s_tpu_torch.ops.weight_only`).
 
 - :func:`int8_matmul` and :func:`int8_matmul_dyn` are the wrappers: a tensor
   on the CPU takes the plain PyTorch version (:func:`int8_matmul_reference`,
@@ -13,18 +15,19 @@ what bounds each and how the design answers that).
   same calls take the kernels on both sides.
 - ``int8_matmul.launches`` and ``int8_matmul_dyn.launches`` count kernel
   launches (the plain versions do not count), so a run can show that the main
-  path went through the kernels.
+  path went through the kernels; ``int8_matmul.rows`` counts them by rows.
 """
 
 from __future__ import annotations
 
+import collections
 import functools
 
 import torch
 
-from s2s_tpu_torch.ops import _build
+from s2s_tpu_torch.ops import _build, weight_only
 
-TILE_N = 128  # columns per block (csrc/int8_matmul.cu kTileN)
+TILE_N = 128  # columns per block of the W8A8 kernel (csrc/int8_matmul_dyn.cu kTileN)
 MAX_ROWS = 64
 _MIN_K_PER_SPLIT = 64
 
@@ -51,8 +54,9 @@ def _row_tile(b: int) -> int:
 
 
 def split_count(b: int, k: int, n: int, sms: int) -> int:
-    """Blocks along K: enough (N/128 x row-tiles x splits) blocks for about
-    four per SM, each split at least 64 rows of K and dividing K evenly."""
+    """The W8A8 kernel's blocks along K: enough (N/128 x row-tiles x splits)
+    blocks for about four per SM, each split at least 64 rows of K and
+    dividing K evenly."""
     tiles = (n // TILE_N) * -(-b // _row_tile(b))
     target = -(-4 * sms // tiles)
     splits = 1
@@ -79,7 +83,8 @@ def int8_matmul_dyn_reference(x: torch.Tensor, q: torch.Tensor, scale: torch.Ten
     return ((acc * xscale) * scale.float()).to(x.dtype)
 
 
-def _check(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, name: str = "int8_matmul") -> None:
+def _check(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, name: str = "int8_matmul",
+           x_align: int = 16) -> None:
     if x.dim() != 2 or q.dim() != 2 or scale.dim() != 1:
         raise ValueError(f"{name} wants x (B, K), q (K, N), scale (N,); got "
                          f"{tuple(x.shape)}, {tuple(q.shape)}, {tuple(scale.shape)}")
@@ -96,42 +101,29 @@ def _check(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, name: str = "i
     if not supports(b, k, q.shape[1]):
         raise ValueError(f"{name} does not support B={b}, K={k}, N={q.shape[1]} "
                          "(needs 1 <= B <= 64, K % 128 == 0, N % 128 == 0)")
-    if q.data_ptr() % 16 or x.data_ptr() % 4:
-        raise ValueError(f"{name} wants 16-byte aligned q and 4-byte aligned x")
+    if q.data_ptr() % 16 or x.data_ptr() % x_align:
+        raise ValueError(f"{name} wants 16-byte aligned q and {x_align}-byte aligned x")
 
 
 def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """x (B, K) bf16 @ q (K, N) int8 * scale (N,) f32 -> (B, N) bf16.
 
     CPU tensors take :func:`int8_matmul_reference`.  CUDA tensors launch
-    ``csrc/int8_matmul.cu`` on the current stream (built at first use) and
-    raise on any shape, type, layout or launch error."""
+    ``csrc/int8_matmul.cu`` once on the current stream (built at first use)
+    as ``weight_only.launch_plan`` plans it, allocate only the output, and raise on
+    any shape, type, layout or launch error."""
     if x.device.type == "cpu":
         return int8_matmul_reference(x, q, scale)
     if x.device.type != "cuda":
         raise ValueError(f"int8_matmul: unsupported device {x.device}")
     _check(x, q, scale)
-    b, k = x.shape
-    n = q.shape[1]
-    lib = _build.load()
-    with torch.cuda.device(x.device):
-        splits = split_count(b, k, n, _sm_count(x.device.index or 0))
-        out = torch.empty((b, n), dtype=torch.bfloat16, device=x.device)
-        partial = (torch.empty((splits, b, n), dtype=torch.float32, device=x.device)
-                   if splits > 1 else None)
-        err = lib.s2s_int8_matmul(
-            x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            partial.data_ptr() if partial is not None else None,
-            b, k, n, splits, torch.cuda.current_stream().cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"int8_matmul kernel launch failed: cudaError {err} "
-                           f"(B={b}, K={k}, N={n}, splits={splits})")
-    _build.count_launch(int8_matmul)
+    out = weight_only.launch("s2s_int8_matmul", x, q, scale, planes=1)
+    _build.count_launch(int8_matmul, x.shape[0])
     return out
 
 
 int8_matmul.launches = 0
+int8_matmul.rows = collections.Counter()
 
 
 def int8_matmul_dyn(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -146,7 +138,7 @@ def int8_matmul_dyn(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> to
         return int8_matmul_dyn_reference(x, q, scale)
     if x.device.type != "cuda":
         raise ValueError(f"int8_matmul_dyn: unsupported device {x.device}")
-    _check(x, q, scale, "int8_matmul_dyn")
+    _check(x, q, scale, "int8_matmul_dyn", x_align=4)
     b, k = x.shape
     n = q.shape[1]
     lib = _build.load()

@@ -5,8 +5,10 @@ against the JAX package's ``ops.quant`` and ``ops.int8_matmul``.
 - The plain int8 matmul against the Pallas kernel run in interpret mode, in
   bf16: within 2 bf16 ulps of max|ref| (the sums run in another order); and
   against JAX's einsum path in f32: within 1e-5 * max|ref|.
-- The CUDA kernel itself runs only on the card (``cuda`` marker); here the
-  wrapper's checks, routing and split choice are tested.
+- The CUDA kernel itself runs only on the card (``cuda`` marker, rows 1-64
+  across both regimes of its launch plan); here the wrapper's checks,
+  routing and the W8A8 kernel's split choice are tested (the W8A16 plan is
+  tested in ``test_torch_port_weight_only.py``).
 """
 
 import math
@@ -173,7 +175,7 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b", [1, 2, 17, 64])
+@pytest.mark.parametrize("b", [1, 2, 4, 8, 16, 17, 32, 64])
 def test_cuda_kernel_matches_plain(cuda_device, b):
     x, q, s = (torch.from_numpy(a).to(cuda_device) for a in _operands(b, 2048, 1024))
     xb = x.to(torch.bfloat16)

@@ -359,7 +359,7 @@ def test_cuda_int8_dyn_kernel_is_bit_equal_to_plain(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_int4_kernel_matches_plain(cuda_device):
-    for b in (1, 2, 16, 64):
+    for b in (1, 2, 4, 8, 16, 32, 64):
         x, q, s = (torch.from_numpy(a).to(cuda_device) for a in _operands(b, 2048, 1024, seed=b, packed=True))
         xb = x.to(torch.bfloat16)
         before = tmm4.int4_matmul.launches
