@@ -41,9 +41,11 @@ Phases, each printed on its own line:
    between the round's first and last kernel, the kernels launched, and the
    kernels with the most device time;
 8. the W8A8-dynamic and packed-int4 kernels against their plain versions
-   (``int8_matmul_dyn`` bit-equal at the int8 shapes x 8-64 rows, with
-   ``torch._int_mm`` plus its epilogue timed beside it above 16 rows;
-   ``int4_matmul`` within 2 bf16 ulps at the code-predictor and LM shapes,
+   (``int8_matmul_dyn`` bit-equal at the int8 shapes x rows 8, 16, 17, 32
+   and 64, with its launch plan, the W8A16 kernel on the same weights and,
+   above 16 rows, ``torch._int_mm`` plus its epilogue timed beside it; its
+   SASS must hold int8 ``wgmma`` (IGMMA) and a call must allocate only its
+   output; ``int4_matmul`` within 2 bf16 ulps at the code-predictor and LM shapes,
    as ``weight_only_phase`` runs ``int8_matmul``, with tinygemm's
    ``torch._weight_int4pack_mm`` as its library call);
 9. ``w8a8_microbench``, the port of ``scripts/microbench_w8a8.py``: the W8A8
@@ -52,12 +54,14 @@ Phases, each printed on its own line:
    W8A16 kernel, in GB/s of int8 weights;
 10. the tiny f32 models on the card against the CPU under ``int8-dyn``,
    ``int4`` (LM) and ``int8-dyn``, ``int8+cp4``, ``int4`` (Qwen3-TTS);
-11. the 4-session serve of phase 6 with ``--llm_quantize int8-dyn
+11. the batched serve of phase 6 at 8 sessions (``QUANT_SERVE_FLAGS``: 8
+   pipelines, 8 LM and TTS slots) with ``--llm_quantize int8-dyn
    --tts_quantize int8+cp4``, after the first has shut down: one concurrent
-   round of text turns, each answered with audio and response.done; the
+   round of 8 text turns, each answered with audio and response.done; the
    kernels' launches from the build (engine warm-up included) to the end of
-   the round, with ``int8_matmul_dyn`` and ``int4_matmul`` each > 0, and the
-   round's weight-only launches by rows.
+   the round, with ``int8_matmul_dyn`` (the LM's 8-row steady steps) and
+   ``int4_matmul`` each > 0 in the round, and the round's int8, W8A8 and
+   int4 launches by rows.
 
 12. ``flash_attention`` against its plain version in bf16 at the distil-
    large-v3 encoder's shapes (20 heads of 64 x every Whisper duration
@@ -186,9 +190,10 @@ INT8_ROWS = [1, 2, 4, 8, 16, 17, 32, 64]
 #: the shape whose times stand in the JSON line: a talker/code-predictor
 #: gate or up projection at decode (1 row)
 HEADLINE = (1, 2048, 6144)
-#: the W8A8 rows: the 16-, 32- and 64-token prompt buckets and 8- and
-#: 16-slot steady steps (fewer rows take the W8A16 route)
-DYN_ROWS = [8, 16, 32, 64]
+#: the W8A8 rows: the 16-, 32- and 64-token prompt buckets, the 8- and
+#: 16-slot steady steps (fewer rows take the W8A16 route) and 17 (past a
+#: bucket: the kernel rounds its rows up to an s8 wgmma N of 24)
+DYN_ROWS = [8, 16, 17, 32, 64]
 #: the W8A8 shape in the JSON line: a SmolLM2-1.7B gate/up projection in the
 #: 32-token prompt bucket (above 16 rows, so ``torch._int_mm`` runs beside it)
 DYN_HEADLINE = (32, 2048, 8192)
@@ -200,6 +205,11 @@ INT4_ROWS = [1, 2, 4, 8, 16, 32, 64]
 #: the 4-session steady step
 INT4_HEADLINE = (4, 2048, 6144)
 QUANT_FLAGS = ["--llm_quantize", "int8-dyn", "--tts_quantize", "int8+cp4"]
+#: the quantized serve: 8 sessions, so the LM's steady steps have 8 rows and
+#: take the W8A8 kernel (at 4 they take the W8A16 route)
+QUANT_SESSIONS = 8
+QUANT_SERVE_FLAGS = [*BATCHED_FLAGS, *QUANT_FLAGS, "--num_pipelines", str(QUANT_SESSIONS),
+                     "--llm_batched_slots", str(QUANT_SESSIONS), "--tts_batched_slots", str(QUANT_SESSIONS)]
 TEXT = "What is the weather like today?"
 L2_BYTES = 50 << 20
 #: H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, dense bf16 FLOP/s, dense int8 OP/s
@@ -381,10 +391,6 @@ def weight_only_phase(dev: torch.device, fmt: str) -> dict:
     check(headline is not None, f"{fmt}_matmul headline shape measured")
     return {"max_abs_err": max_err, **{key: headline[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                                        "library_ms")}, "rows": rows}
-
-
-def _sms(dev: torch.device) -> int:
-    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def attention_phase(dev: torch.device) -> dict:
@@ -616,13 +622,59 @@ def _int_mm_ms(x, qs, scale) -> float:
     return device_ms(library, 2 * len(qs))
 
 
-def int8_dyn_phase(dev: torch.device) -> dict:
-    """``int8_matmul_dyn`` against its plain version at the int8 shapes and
-    8-64 rows: bit-equal (error 0), with device times of the kernel, the
-    plain version and, above 16 rows, ``torch._int_mm`` plus its epilogue."""
-    from s2s_tpu_torch.ops import int8_matmul as mm
+def _gmma_ops(library: str) -> dict[str, dict[str, int]]:
+    """Tensor-core instructions (``IGMMA``: int8 wgmma; ``HGMMA``: bf16) in
+    the SASS of each W8A8 kernel of the built library, by ``cuobjdump``."""
+    import re
+    from pathlib import Path
 
+    from s2s_tpu_torch.ops import _build
+
+    cuobjdump = str(Path(_build._nvcc()).with_name("cuobjdump"))
+    sass = subprocess.run([cuobjdump, "-sass", library], capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    found, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+        elif name and "w8a8" in name:
+            for op in ("IGMMA", "HGMMA"):
+                if re.search(rf"\b{op}\b", line):
+                    found.setdefault(name, {op: 0 for op in ("IGMMA", "HGMMA")})[op] += 1
+    return found
+
+
+def int8_dyn_phase(dev: torch.device, library: str) -> dict:
+    """``int8_matmul_dyn`` against its plain version at the int8 shapes and
+    ``DYN_ROWS``: bit-equal (error 0), with the launch plan and device times
+    of the kernel, the plain version, the W8A16 kernel on the same weights
+    and, above 16 rows, ``torch._int_mm`` plus its epilogue.  Before that:
+    the kernel's SASS holds int8 wgmma and no bf16 one, and a call allocates
+    only its output (no xq, scale or int32 workspace in device memory)."""
+    from s2s_tpu_torch.ops import int8_matmul as mm
+    from s2s_tpu_torch.ops import weight_only as wo
+
+    ops = _gmma_ops(library)
+    check(len(ops) == len(wo.W8A8_ROWS) and all(v["IGMMA"] > 0 and v["HGMMA"] == 0 for v in ops.values()),
+          f"each W8A8 kernel runs int8 wgmma: {ops}")
     gen = torch.Generator(device=dev).manual_seed(6)
+    b, k, n = DYN_HEADLINE
+    x = torch.randn(b, k, generator=gen, device=dev).to(torch.bfloat16)
+    q = torch.randint(-127, 128, (k, n), generator=gen, device=dev, dtype=torch.int16).to(torch.int8)
+    scale = torch.rand(n, generator=gen, device=dev)
+    mm.int8_matmul_dyn(x, q, scale)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    out = mm.int8_matmul_dyn(x, q, scale)
+    torch.cuda.synchronize()
+    allocated = torch.cuda.max_memory_allocated(dev) - held
+    check(allocated == -(-out.numel() * 2 // 512) * 512, f"int8_matmul_dyn allocated {allocated} bytes, not only its "
+          f"output's {out.numel() * 2}")
+    phase("int8_matmul_dyn_build", gmma_ops=ops, call_allocates_bytes=allocated, output_bytes=out.numel() * 2)
+    del x, q, out
+
     rows, headline = [], None
     for k, n in INT8_SHAPES:
         copies = max(2, -(-2 * L2_BYTES // (k * n)))
@@ -631,12 +683,14 @@ def int8_dyn_phase(dev: torch.device) -> dict:
         scale = torch.rand(n, generator=gen, device=dev) * 0.01 + 1e-4
         for b in DYN_ROWS:
             x = (3 * torch.randn(b, k, generator=gen, device=dev)).to(torch.bfloat16)
+            x[-1] = x[0]
             got = mm.int8_matmul_dyn(x, qs[0], scale)
             want = mm.int8_matmul_dyn_reference(x, qs[0], scale)
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
             check(got.shape == want.shape and torch.equal(got, want),
                   f"int8_matmul_dyn B={b} K={k} N={n}: not bit-equal to the plain version (|d|={err})")
+            check(torch.equal(got[-1], got[0]), f"int8_matmul_dyn B={b} K={k} N={n}: duplicated row differs")
 
             def plain(i):
                 mm.int8_matmul_dyn_reference(x, qs[i % copies], scale)
@@ -644,12 +698,16 @@ def int8_dyn_phase(dev: torch.device) -> dict:
             def kernel(i):
                 mm.int8_matmul_dyn(x, qs[i % copies], scale)
 
-            times = [device_ms(f, 2 * copies) for f in (plain, kernel, kernel, plain)]
-            ms, plain_ms = (times[1] + times[2]) / 2, (times[0] + times[3]) / 2
+            def w8a16(i):
+                mm.int8_matmul(x, qs[i % copies], scale)
+
+            times = [device_ms(f, 2 * copies) for f in (plain, kernel, w8a16, w8a16, kernel, plain)]
+            ms, plain_ms, w8a16_ms = (times[1] + times[4]) / 2, (times[0] + times[5]) / 2, (times[2] + times[3]) / 2
             bound_ms, bound_by = gemv_bound(b, k, n, k * n, INT8_OPS)
-            row = dict(B=b, K=k, N=n, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                       bound_by=bound_by, library_ms=_int_mm_ms(x, qs, scale) if b > 16 else None,
-                       kernel_GBps=k * n / (ms * 1e-3) / 1e9, splits=mm.split_count(b, k, n, _sms(dev)))
+            row = dict(B=b, K=k, N=n, max_abs_err=err, ms=ms, plain_ms=plain_ms, w8a16_ms=w8a16_ms,
+                       bound_ms=bound_ms, bound_by=bound_by, library_ms=_int_mm_ms(x, qs, scale) if b > 16 else None,
+                       kernel_GBps=k * n / (ms * 1e-3) / 1e9, plan=wo.device_plan(b, k, n, 1, dev, wo.W8A8).describe(),
+                       duplicate_row_bitwise_equal=True)
             phase("int8_matmul_dyn", **row)
             rows.append(row)
             if (b, k, n) == DYN_HEADLINE:
@@ -657,16 +715,18 @@ def int8_dyn_phase(dev: torch.device) -> dict:
         del qs
     check(headline is not None, "int8_matmul_dyn headline shape measured")
     return {"max_abs_err": 0.0, **{key: headline[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                                   "library_ms")}}
+                                                                   "library_ms")}, "rows": rows}
 
 
-def w8a8_microbench_phase(dev: torch.device) -> None:
+def w8a8_microbench_phase(dev: torch.device, dyn_rows: list[dict]) -> dict:
     """The port of ``scripts/microbench_w8a8.py``: the W8A8 error against an
     f32 product at 16 rows x 2048 x 8192, then its mix (per step and layer,
     seven linears of SmolLM2-1.7B's widths, 24 layers, 8 steps, 16 rows, the
     8192-wide input tiled from the 2048-wide one) captured as one CUDA graph,
     through the W8A8 kernel and through the W8A16 kernel, in turns; GB/s of
-    int8 weights read."""
+    int8 weights read.  Returns the kernel's row of ``int8_dyn_phase`` at
+    the microbenchmark's 16 x 2048 x 8192 for the JSON line (its library
+    call is null: ``torch._int_mm`` takes more than 16 rows)."""
     from s2s_tpu_torch.ops import int8_matmul as mm
 
     b, d, ff, layers, steps = 16, 2048, 8192, 24, 8
@@ -704,6 +764,7 @@ def w8a8_microbench_phase(dev: torch.device) -> None:
           seven_calls_w8a8_gbps=nbytes / w8a8_s / 1e9, seven_calls_w8a16_s=w8a16_s,
           seven_calls_w8a16_gbps=nbytes / w8a16_s / 1e9, weight_bytes=nbytes, calls=7 * layers * steps)
     check(math.isfinite(rel) and rel < 0.05, f"W8A8 error against f32 {rel}")
+    return next(row for row in dyn_rows if (row["B"], row["K"], row["N"]) == (b, d, ff))
 
 
 def tiny_quant_parity_phase(dev: torch.device) -> None:
@@ -761,23 +822,27 @@ def _launch_counters():
             "flash_attention": fa.flash_attention, "log_mel": log_mel.mel_power}
 
 
-def _launches_by_rows() -> dict[str, dict[int, int]]:
-    """The two weight-only kernels' launches since their row counts were
-    cleared, by the rows of the call."""
+def _by_rows_counters():
     from s2s_tpu_torch.ops import int4_matmul as m4
     from s2s_tpu_torch.ops import int8_matmul as mm
 
-    return {fn.__name__: dict(sorted(fn.rows.items())) for fn in (mm.int8_matmul, m4.int4_matmul)}
+    return (mm.int8_matmul, mm.int8_matmul_dyn, m4.int4_matmul)
+
+
+def _launches_by_rows() -> dict[str, dict[int, int]]:
+    """The int8, W8A8 and int4 kernels' launches since their row counts were
+    cleared, by the rows of the call."""
+    return {fn.__name__: dict(sorted(fn.rows.items())) for fn in _by_rows_counters()}
 
 
 def quant_serve_phase(dev: torch.device, card: list[str]) -> dict[str, int]:
-    """The 4-session batched serve with ``--llm_quantize int8-dyn
-    --tts_quantize int8+cp4``: build (engines warmed), then one concurrent
-    round of text turns.  Every count is set to 0 just before the build and
-    read after the warm-up and after the round; returns the counts over the
-    whole serve.  At 4 slots the LM's W8A8 calls of 8-64 rows are the 16-,
-    32- and 64-token prompt buckets, which the warm-up runs (the round's
-    prompts fill the 512 bucket, its steady steps have 4 rows)."""
+    """The 8-session batched serve (``QUANT_SERVE_FLAGS``) with
+    ``--llm_quantize int8-dyn --tts_quantize int8+cp4``: build (engines
+    warmed), then one concurrent round of 8 text turns.  Every count is set
+    to 0 just before the build and read after the warm-up and after the
+    round; returns the counts over the whole serve.  With 8 slots the LM's
+    steady steps have 8 rows and take the W8A8 kernel (so do the warm-up's
+    16-, 32- and 64-token prompt buckets)."""
     from s2s_tpu_torch import builder, cli
     from s2s_tpu_torch.registry import GLOBAL_MODEL_CACHE
 
@@ -799,7 +864,7 @@ def quant_serve_phase(dev: torch.device, card: list[str]) -> dict[str, int]:
         fn.launches = 0
     t0 = time.perf_counter()
     try:
-        manager, server, _ = cli.build_from_argv(["--device", "cuda", *BATCHED_FLAGS, *QUANT_FLAGS], stop)
+        manager, server, _ = cli.build_from_argv(["--device", "cuda", *QUANT_SERVE_FLAGS], stop)
     finally:
         builder.warmup_engines = untimed
     torch.cuda.synchronize()
@@ -810,10 +875,10 @@ def quant_serve_phase(dev: torch.device, card: list[str]) -> dict[str, int]:
         check(server.started.wait(60), "server started")
         url = f"ws://127.0.0.1:{server.bound_port}/v1/realtime"
         before = {name: fn.launches for name, fn in counters.items()}
-        for name in ("int8_matmul", "int4_matmul"):
-            counters[name].rows.clear()
+        for fn in _by_rows_counters():
+            fn.rows.clear()
         t0 = time.perf_counter()
-        rounds = asyncio.run(_concurrent_text_turns(url, SESSIONS))
+        rounds = asyncio.run(_concurrent_text_turns(url, QUANT_SESSIONS))
         round_s = time.perf_counter() - t0
         torch.cuda.synchronize()
         launches = {name: fn.launches for name, fn in counters.items()}
@@ -830,9 +895,10 @@ def quant_serve_phase(dev: torch.device, card: list[str]) -> dict[str, int]:
     in_round = {name: launches[name] - before[name] for name in launches}
     check(launches["int8_matmul_dyn"] > 0 and launches["int4_matmul"] > 0,
           f"the W8A8 and int4 kernels launched in the quantized serve: {launches}")
-    check(in_round["int4_matmul"] > 0, f"the int4 kernel launched in the quantized round: {in_round}")
-    phase("quant_serve", card=card, sessions=SESSIONS, flags=QUANT_FLAGS, build_s=build_s, warmup_s=warm["s"],
-          round_s=round_s, text_turns=sessions, launches=launches, launches_warmup=warm["launches"],
+    check(in_round["int8_matmul_dyn"] > 0 and in_round["int4_matmul"] > 0,
+          f"the W8A8 and int4 kernels launched in the quantized round: {in_round}")
+    phase("quant_serve", card=card, sessions=QUANT_SESSIONS, flags=QUANT_SERVE_FLAGS[len(BATCHED_FLAGS):],
+          build_s=build_s, warmup_s=warm["s"], round_s=round_s, text_turns=sessions, launches=launches, launches_warmup=warm["launches"],
           launches_round=in_round, launches_round_by_rows=by_rows)
     return launches
 
@@ -1398,8 +1464,8 @@ def main() -> int:
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()
     phase("card", nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
           device=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
-    path, _ = _build.build()
-    phase("build", library=str(path.name), seconds=_build.build_seconds)
+    library, _ = _build.build()
+    phase("build", library=str(library.name), seconds=_build.build_seconds)
     with no_tf32():
         int8 = weight_only_phase(dev, "int8")
         attn = attention_phase(dev)
@@ -1408,9 +1474,9 @@ def main() -> int:
     serve_phase(dev)
     launches = batched_serve_phase(dev, smi)
     with no_tf32():
-        dyn = int8_dyn_phase(dev)
+        dyn = int8_dyn_phase(dev, str(library))
         int4 = weight_only_phase(dev, "int4")
-        w8a8_microbench_phase(dev)
+        micro = w8a8_microbench_phase(dev, dyn["rows"])
         tiny_quant_parity_phase(dev)
     quant_launches = quant_serve_phase(dev, smi)
     with no_tf32():
@@ -1439,6 +1505,10 @@ def main() -> int:
         {"name": "log_mel", "route": "cuda", "source": "s2s_tpu_torch/csrc/log_mel.cu",
          "replaces": "s2s_tpu/ops/pallas_mel.py:73", "launches": whisper_launches["log_mel"],
          **{k: logmel[k] for k in keys}},
+        # the microbenchmark's kernel is #2's math: the W8A8 kernel, at its 16-row shape
+        {"name": "w8a8_matmul", "route": "cuda", "source": "s2s_tpu_torch/csrc/int8_matmul_dyn.cu",
+         "replaces": "scripts/microbench_w8a8.py:47", "launches": quant_launches["int8_matmul_dyn"],
+         **{k: micro[k] for k in keys}},
     ]}))
     print(smi[0])
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,10 @@ and ``::int8_matmul_dyn`` as hand-written CUDA kernels for Hopper
 (``csrc/int8_matmul.cu`` and ``csrc/int8_matmul_dyn.cu``, whose headers say
 what bounds each and how the design answers that).  The W8A16 kernel is the
 weight-only template (``csrc/weight_only_matmul.cuh``) with one weight plane;
-``weight_only.launch_plan`` plans it (:mod:`s2s_tpu_torch.ops.weight_only`).
+the W8A8 kernel (int8 tensor cores, the activation quantize in the same
+launch) is built on that template's helpers.  ``weight_only.launch_plan``
+plans both (:mod:`s2s_tpu_torch.ops.weight_only`; regime
+``weight_only.W8A8`` for W8A8).
 
 - :func:`int8_matmul` and :func:`int8_matmul_dyn` are the wrappers: a tensor
   on the CPU takes the plain PyTorch version (:func:`int8_matmul_reference`,
@@ -15,21 +18,19 @@ weight-only template (``csrc/weight_only_matmul.cuh``) with one weight plane;
   same calls take the kernels on both sides.
 - ``int8_matmul.launches`` and ``int8_matmul_dyn.launches`` count kernel
   launches (the plain versions do not count), so a run can show that the main
-  path went through the kernels; ``int8_matmul.rows`` counts them by rows.
+  path went through the kernels; ``int8_matmul.rows`` and
+  ``int8_matmul_dyn.rows`` count them by rows.
 """
 
 from __future__ import annotations
 
 import collections
-import functools
 
 import torch
 
 from s2s_tpu_torch.ops import _build, weight_only
 
-TILE_N = 128  # columns per block of the W8A8 kernel (csrc/int8_matmul_dyn.cu kTileN)
 MAX_ROWS = 64
-_MIN_K_PER_SPLIT = 64
 
 
 def supports(b: int, k: int, n: int) -> bool:
@@ -42,27 +43,6 @@ def int8_matmul_reference(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor)
     """Plain PyTorch version: (x @ q) accumulated in f32, times the
     per-channel scale in f32, cast once to x's dtype."""
     return ((x.float() @ q.float()) * scale.float()).to(x.dtype)
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
-
-
-def _row_tile(b: int) -> int:
-    return 1 if b <= 1 else 2 if b <= 2 else 4 if b <= 4 else 8
-
-
-def split_count(b: int, k: int, n: int, sms: int) -> int:
-    """The W8A8 kernel's blocks along K: enough (N/128 x row-tiles x splits)
-    blocks for about four per SM, each split at least 64 rows of K and
-    dividing K evenly."""
-    tiles = (n // TILE_N) * -(-b // _row_tile(b))
-    target = -(-4 * sms // tiles)
-    splits = 1
-    while splits * 2 <= target and k % (splits * 2 * _MIN_K_PER_SPLIT) == 0:
-        splits *= 2
-    return splits
 
 
 def int8_matmul_dyn_reference(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -83,8 +63,7 @@ def int8_matmul_dyn_reference(x: torch.Tensor, q: torch.Tensor, scale: torch.Ten
     return ((acc * xscale) * scale.float()).to(x.dtype)
 
 
-def _check(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, name: str = "int8_matmul",
-           x_align: int = 16) -> None:
+def _check(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, name: str = "int8_matmul") -> None:
     if x.dim() != 2 or q.dim() != 2 or scale.dim() != 1:
         raise ValueError(f"{name} wants x (B, K), q (K, N), scale (N,); got "
                          f"{tuple(x.shape)}, {tuple(q.shape)}, {tuple(scale.shape)}")
@@ -101,8 +80,8 @@ def _check(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, name: str = "i
     if not supports(b, k, q.shape[1]):
         raise ValueError(f"{name} does not support B={b}, K={k}, N={q.shape[1]} "
                          "(needs 1 <= B <= 64, K % 128 == 0, N % 128 == 0)")
-    if q.data_ptr() % 16 or x.data_ptr() % x_align:
-        raise ValueError(f"{name} wants 16-byte aligned q and {x_align}-byte aligned x")
+    if q.data_ptr() % 16 or x.data_ptr() % 16:
+        raise ValueError(f"{name} wants 16-byte aligned q and x")
 
 
 def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -131,34 +110,20 @@ def int8_matmul_dyn(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> to
     bf16, bit-equal to :func:`int8_matmul_dyn_reference`.
 
     CPU tensors take the plain version.  CUDA tensors launch
-    ``csrc/int8_matmul_dyn.cu`` on the current stream (the per-row quantize,
-    the int8 product and, when K is split, the reduce) and raise on any
-    shape, type, layout or launch error."""
+    ``csrc/int8_matmul_dyn.cu`` once on the current stream (built at first
+    use) as ``weight_only.launch_plan`` plans it (regime
+    ``weight_only.W8A8``): the per-row quantize, the int8 product and the
+    epilogue in one launch, allocating only the output; raise on any shape,
+    type, layout or launch error."""
     if x.device.type == "cpu":
         return int8_matmul_dyn_reference(x, q, scale)
     if x.device.type != "cuda":
         raise ValueError(f"int8_matmul_dyn: unsupported device {x.device}")
-    _check(x, q, scale, "int8_matmul_dyn", x_align=4)
-    b, k = x.shape
-    n = q.shape[1]
-    lib = _build.load()
-    with torch.cuda.device(x.device):
-        splits = split_count(b, k, n, _sm_count(x.device.index or 0))
-        out = torch.empty((b, n), dtype=torch.bfloat16, device=x.device)
-        xq = torch.empty((b, k), dtype=torch.int8, device=x.device)
-        xscale = torch.empty((b,), dtype=torch.float32, device=x.device)
-        partial = (torch.empty((splits, b, n), dtype=torch.int32, device=x.device)
-                   if splits > 1 else None)
-        err = lib.s2s_int8_matmul_dyn(
-            x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), xq.data_ptr(), xscale.data_ptr(),
-            partial.data_ptr() if partial is not None else None,
-            b, k, n, splits, torch.cuda.current_stream().cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"int8_matmul_dyn kernel launch failed: cudaError {err} "
-                           f"(B={b}, K={k}, N={n}, splits={splits})")
-    _build.count_launch(int8_matmul_dyn)
+    _check(x, q, scale, "int8_matmul_dyn")
+    out = weight_only.launch("s2s_int8_matmul_dyn", x, q, scale, planes=1, regime=weight_only.W8A8)
+    _build.count_launch(int8_matmul_dyn, x.shape[0])
     return out
 
 
 int8_matmul_dyn.launches = 0
+int8_matmul_dyn.rows = collections.Counter()

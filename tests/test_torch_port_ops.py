@@ -6,9 +6,9 @@ against the JAX package's ``ops.quant`` and ``ops.int8_matmul``.
   bf16: within 2 bf16 ulps of max|ref| (the sums run in another order); and
   against JAX's einsum path in f32: within 1e-5 * max|ref|.
 - The CUDA kernel itself runs only on the card (``cuda`` marker, rows 1-64
-  across both regimes of its launch plan); here the wrapper's checks,
-  routing and the W8A8 kernel's split choice are tested (the W8A16 plan is
-  tested in ``test_torch_port_weight_only.py``).
+  across both regimes of its launch plan); here the wrapper's checks and
+  routing are tested (the W8A16 and W8A8 plans are tested in
+  ``test_torch_port_weight_only.py``).
 """
 
 import math
@@ -149,14 +149,6 @@ def test_supports_is_the_jax_contract():
     for b, k, n in [(1, 2048, 2048), (64, 8192, 2048), (65, 128, 128), (1, 100, 128),
                     (1, 128, 100), (1, 32768, 256), (1, 16384, 256)]:
         assert tmm.supports(b, k, n) == jmm.supports(b, k, n), (b, k, n)
-
-
-def test_split_count_fills_the_card_and_divides_k():
-    for b, k, n in [(1, 2048, 2048), (2, 2048, 6144), (17, 8192, 2048), (64, 2048, 8192),
-                    (1, 6144, 2048), (64, 128, 128)]:
-        splits = tmm.split_count(b, k, n, 132)
-        assert splits >= 1 and k % (splits * 64) == 0 or splits == 1
-        assert (k // splits) % 8 == 0
 
 
 def test_cpu_tensors_never_launch():
