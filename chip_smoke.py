@@ -29,13 +29,16 @@ Phases, each printed on its own line:
    text turn (audio deltas + response.done) and one audio turn (a
    transcription event, then, unless the random-init transcript is empty, a
    spoken reply with response.done); the int8 kernel's launch count over
-   those two turns must be > 0;
+   those two turns must be > 0, and the Parakeet frontend's log-mel
+   launches exactly one per transcription batch (> 0);
 6. the full-width 4-session batched serve with ``scripts/run_soak.py``'s
    ``--sessions 4`` flags (batched LM, TTS and Parakeet engines, warmed at
    build): four WebSocket clients send one text turn each at the same
    moment and must each get audio deltas and response.done, then one audio
    turn; both kernels' launch counts over those turns must be > 0 (the
-   weight-only kernels' launches are also printed by rows);
+   weight-only kernels' launches are also printed by rows), and the
+   Parakeet frontend's log-mel launches exactly one per transcription
+   batch (> 0);
 7. one more concurrent 4-session round of that serve under
    ``torch.profiler`` (device activity only): the device's busy share
    between the round's first and last kernel, the kernels launched, and the
@@ -70,13 +73,22 @@ Phases, each printed on its own line:
    the kernel, the plain version and ``F.scaled_dot_product_attention``,
    the tensor-core kernel's tiles and stages, and a duplicated head that
    must come out bitwise equal to the head it copies;
-13. ``log_mel`` (the log-mel kernel, then the torch log steps) against the
-   plain torch log-mel at 1, 8 and 30 s x 80 and 128 mels, within
-   ``LOG_MEL_ATOL`` on the log-mel output, with device times of both and of
-   ``torch.stft`` + power + filterbank + the same log steps; its bound counts
-   the function's own minimum (a real FFT per frame, audio in and log-mel
-   out), and the direct DFT's count stands beside it as
-   ``direct_dft_bound_ms``;
+13. ``log_mel``: the log-mel kernel (one cooperative launch, the log steps
+   inside) against the plain torch log-mel at 1, 8 and 30 s x 80 and 128
+   mels, within ``LOG_MEL_ATOL`` on the log-mel output, a second run
+   bitwise equal, one launch a call, with its launch plan and device times
+   of both and of ``torch.stft`` + power + filterbank + the same log steps;
+   its bound counts the function's own minimum (a real FFT per frame, audio
+   in and log-mel out), and the direct DFT's count stands beside it as
+   ``direct_dft_bound_ms``; a grid larger than the card holds at once must
+   be refused and leave its output untouched; then ``parakeet_log_mel``,
+   Parakeet's batched frontend on the same kernel, at widths 1, 4 and 16 x
+   the 1, 3 and 15 s buckets (rows of differing n_valid, and at widths 4
+   and 16 a padding row that must come out exactly zero) against the plain
+   batched version within ``PARAKEET_MEL_RTOL`` x max|plain|, bitwise
+   repeatable, one launch a batch, with device times of the kernel, the
+   plain batched version, the per-row plain loop it replaced and
+   ``torch.stft`` + power + filterbank + log + the masked normalization;
 14. tiny Whisper (``test_tiny`` at head dim 64, so the encoder takes the
    flash kernel), Smart Turn's chain and the voice-clone speaker on the card
    against the same code on the CPU;
@@ -95,9 +107,10 @@ are compared in full f32; the serves run with torch's defaults, as
 bound: the larger of the bytes it must move over 3.35 TB/s and its
 operations over the card's peak for their type.
 
-The line before the last is a JSON object of the kernels; the last line is
+After the phases come the card's ``nvidia-smi`` name and power limit, then,
+on the line before the last, a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
-before that line.
+before those lines.
 """
 
 from __future__ import annotations
@@ -171,6 +184,15 @@ LOG_MEL_HEADLINE = (8, 80)
 #: pass mark of the log-mel kernel on the log-mel output ((log10 + 4) / 4,
 #: a range of 2): f32 DFTs in two sum orders agree to ~5e-5 at these inputs
 LOG_MEL_ATOL = 5e-4
+#: Parakeet's frontend: (rows, seconds) over the batcher's widths and the
+#: 1, 3 and 15 s buckets; the 4 x 3 s batch stands in PERF.md
+PARAKEET_MEL_SHAPES = [(w, s) for w in (1, 4, 16) for s in (1, 3, 15)]
+PARAKEET_MEL_HEADLINE = (4, 3)
+#: pass mark of the Parakeet frontend, relative to max|plain| of the
+#: normalized features: the CPU parity bound against the JAX package (both
+#: f32, the DFT as a product there and as an FFT here; the normalization
+#: divides by a per-mel std, so an absolute bound would not fit every row)
+PARAKEET_MEL_RTOL = 1e-4
 #: decode attention at the serving shapes: (name, H, KV, hd, T, tails); T is
 #: the engine's --*_batched_max_t, the tails the steady chunk first, then the
 #: priority / ramp chunk sizes; last the talker at its max_seq_len, whose
@@ -819,7 +841,35 @@ def _launch_counters():
 
     return {"int8_matmul": mm.int8_matmul, "decode_attention": da.concat_attention,
             "int8_matmul_dyn": mm.int8_matmul_dyn, "int4_matmul": m4.int4_matmul,
-            "flash_attention": fa.flash_attention, "log_mel": log_mel.mel_power}
+            "flash_attention": fa.flash_attention, "log_mel": log_mel.log_mel_spectrogram,
+            "parakeet_log_mel": log_mel.parakeet_log_mel}
+
+
+@contextlib.contextmanager
+def counted_transcriptions():
+    """Counts Parakeet's transcription batches (``transcribe_step_batch``,
+    through which the single-session and the batched STT both go) in the
+    dict it yields, under "batches"."""
+    from s2s_tpu_torch.models import parakeet
+
+    seen = {"batches": 0}
+    real = parakeet.transcribe_step_batch
+
+    def counted(*args, **kwargs):
+        seen["batches"] += 1
+        return real(*args, **kwargs)
+
+    parakeet.transcribe_step_batch = counted
+    try:
+        yield seen
+    finally:
+        parakeet.transcribe_step_batch = real
+
+
+def check_parakeet_frontend(launches: int, batches: int, where: str) -> None:
+    check(launches > 0 and launches == batches,
+          f"{where}: the Parakeet frontend's log-mel launched {launches} times for {batches} transcription "
+          f"batches (one a batch, > 0)")
 
 
 def _by_rows_counters():
@@ -982,11 +1032,13 @@ def _transcribed_and_settled(events, now) -> bool:
     return now - transcripts[0][0] > 5.0
 
 
-def serve_phase(dev: torch.device) -> int:
+def serve_phase(dev: torch.device) -> dict[str, int]:
     """The single-session serve: a warm-up text turn, then a measured text
-    turn and a voice turn; returns the int8 kernel's launches over those."""
+    turn and a voice turn; returns the int8 kernel's and the Parakeet
+    frontend's launches over those."""
     from s2s_tpu_torch import cli
     from s2s_tpu_torch.ops import int8_matmul as mm
+    from s2s_tpu_torch.ops import log_mel
     from s2s_tpu_torch.registry import GLOBAL_MODEL_CACHE
 
     stop = threading.Event()
@@ -1002,11 +1054,12 @@ def serve_phase(dev: torch.device) -> int:
         asyncio.run(_session(url, _text_turn("Warm up, please."), _response_done, 600))
         warmup_s = time.perf_counter() - t0
 
-        mm.int8_matmul.launches = 0  # count the measured turns only
-        text = asyncio.run(_session(url, _text_turn(TEXT), _response_done, 600))
-        audio = asyncio.run(_session(url, _audio_turn(), _transcribed_and_settled, 600))
-        torch.cuda.synchronize()
-        launches = mm.int8_matmul.launches
+        with counted_transcriptions() as stt:
+            mm.int8_matmul.launches = log_mel.parakeet_log_mel.launches = 0  # count the measured turns only
+            text = asyncio.run(_session(url, _text_turn(TEXT), _response_done, 600))
+            audio = asyncio.run(_session(url, _audio_turn(), _transcribed_and_settled, 600))
+            torch.cuda.synchronize()
+            launches, mel_launches = mm.int8_matmul.launches, log_mel.parakeet_log_mel.launches
     finally:
         stop.set()
         manager.stop()
@@ -1015,9 +1068,11 @@ def serve_phase(dev: torch.device) -> int:
     text_pcm, text_done = _reply(text, "text turn")
     voice = _voice_summary(audio)
     check(launches > 0, "int8 kernel launched during the turns")
+    check_parakeet_frontend(mel_launches, stt["batches"], "single-session serve")
     phase("serve", build_s=build_s, warmup_turn_s=warmup_s, ttfa_s=_first_audio_s(text), text_turn_s=text_done,
-          audio_seconds=text_pcm.size / 24_000, voice_turn=voice, int8_launches=launches)
-    return launches
+          audio_seconds=text_pcm.size / 24_000, voice_turn=voice, int8_launches=launches,
+          parakeet_log_mel_launches=mel_launches, transcription_batches=stt["batches"])
+    return {"int8_matmul": launches, "parakeet_log_mel": mel_launches}
 
 
 def _reply_or_quiet(events, now) -> bool:
@@ -1057,6 +1112,7 @@ def batched_serve_phase(dev: torch.device, card: list[str]) -> dict[str, int]:
     from s2s_tpu_torch.ops import decode_attention as da
     from s2s_tpu_torch.ops import int4_matmul as m4
     from s2s_tpu_torch.ops import int8_matmul as mm
+    from s2s_tpu_torch.ops import log_mel
     from s2s_tpu_torch.registry import GLOBAL_MODEL_CACHE
 
     warm = {}
@@ -1082,16 +1138,19 @@ def batched_serve_phase(dev: torch.device, card: list[str]) -> dict[str, int]:
     try:
         check(server.started.wait(60), "server started")
         url = f"ws://127.0.0.1:{server.bound_port}/v1/realtime"
-        mm.int8_matmul.launches = da.concat_attention.launches = 0  # count the measured turns only
-        mm.int8_matmul.rows.clear()
-        m4.int4_matmul.rows.clear()
-        t0 = time.perf_counter()
-        rounds = asyncio.run(_concurrent_text_turns(url, SESSIONS))
-        round_s = time.perf_counter() - t0
-        audio = asyncio.run(_session(url, _audio_turn(), _transcribed_and_settled, 600))
-        torch.cuda.synchronize()
-        launches = {"int8_matmul": mm.int8_matmul.launches, "decode_attention": da.concat_attention.launches}
-        by_rows = _launches_by_rows()
+        with counted_transcriptions() as stt:
+            # count the measured turns only
+            mm.int8_matmul.launches = da.concat_attention.launches = log_mel.parakeet_log_mel.launches = 0
+            mm.int8_matmul.rows.clear()
+            m4.int4_matmul.rows.clear()
+            t0 = time.perf_counter()
+            rounds = asyncio.run(_concurrent_text_turns(url, SESSIONS))
+            round_s = time.perf_counter() - t0
+            audio = asyncio.run(_session(url, _audio_turn(), _transcribed_and_settled, 600))
+            torch.cuda.synchronize()
+            launches = {"int8_matmul": mm.int8_matmul.launches, "decode_attention": da.concat_attention.launches}
+            mel_launches = log_mel.parakeet_log_mel.launches
+            by_rows = _launches_by_rows()
         trace = traced_round(url)
     finally:
         stop.set()
@@ -1104,8 +1163,11 @@ def batched_serve_phase(dev: torch.device, card: list[str]) -> dict[str, int]:
         sessions.append({"ttfa_s": _first_audio_s(events), "turn_s": done, "audio_seconds": pcm.size / 24_000})
     voice = _voice_summary(audio)
     check(all(v > 0 for v in launches.values()), f"both kernels launched in the batched serve: {launches}")
+    check_parakeet_frontend(mel_launches, stt["batches"], "batched serve")
+    launches["parakeet_log_mel"] = mel_launches
     phase("batched_serve", card=card, sessions=SESSIONS, build_s=build_s, warmup_s=warm["s"], round_s=round_s,
-          text_turns=sessions, voice_turn=voice, launches=launches, launches_by_rows=by_rows)
+          text_turns=sessions, voice_turn=voice, launches=launches, launches_by_rows=by_rows,
+          transcription_batches=stt["batches"])
     phase("trace", **trace)
     return launches
 
@@ -1206,11 +1268,15 @@ def _speech_like(n: int, gen: torch.Generator, dev) -> torch.Tensor:
 
 
 def log_mel_phase(dev: torch.device) -> dict:
-    """The log-mel through the kernel (``log_mel.log_mel_spectrogram``)
-    against the plain torch ops (``mel.log_mel_spectrogram``) at
-    ``LOG_MEL_SHAPES``, within ``LOG_MEL_ATOL``; device times of both, of the
-    kernel alone, and of the library yardstick: ``torch.stft`` + power +
-    filterbank product + the same log steps."""
+    """The log-mel through the kernel (``log_mel.log_mel_spectrogram``, one
+    launch) against the plain torch ops (``mel.log_mel_spectrogram``) at
+    ``LOG_MEL_SHAPES``, within ``LOG_MEL_ATOL``, a second run bitwise equal;
+    device times of both and of the library yardstick: ``torch.stft`` +
+    power + filterbank product + the same log steps.  Then a grid one block
+    larger than the card holds: refused, its output untouched.  Then
+    Parakeet's frontend (``parakeet_log_mel_phase``)."""
+    import dataclasses
+
     from s2s_tpu_torch.ops import log_mel, mel
 
     gen = torch.Generator(device=dev).manual_seed(11)
@@ -1218,7 +1284,10 @@ def log_mel_phase(dev: torch.device) -> dict:
     window = torch.hann_window(mel.N_FFT, periodic=True, device=dev)
     for seconds, n_mels in LOG_MEL_SHAPES:
         audio = _speech_like(seconds * 16_000, gen, dev)
+        before = log_mel.log_mel_spectrogram.launches
         got = log_mel.log_mel_spectrogram(audio, n_mels)
+        again = log_mel.log_mel_spectrogram(audio, n_mels)
+        launched = log_mel.log_mel_spectrogram.launches - before
         want = mel.log_mel_spectrogram(audio, n_mels)
         fb = mel.tables(n_mels, dev)[2]
 
@@ -1233,6 +1302,8 @@ def log_mel_phase(dev: torch.device) -> dict:
         err = (got - want).abs().max().item()
         check(got.shape == want.shape == (n_mels, seconds * 100) and math.isfinite(err) and err <= LOG_MEL_ATOL,
               f"log_mel {seconds} s x {n_mels}: |d|={err} > {LOG_MEL_ATOL}")
+        check(torch.equal(got, again), f"log_mel {seconds} s x {n_mels}: two runs differ")
+        check(launched == 2, f"log_mel {seconds} s x {n_mels}: {launched} launches for two calls")
         max_err = max(max_err, err)
 
         def plain(i):
@@ -1240,9 +1311,6 @@ def log_mel_phase(dev: torch.device) -> dict:
 
         def kernel(i):
             log_mel.log_mel_spectrogram(audio, n_mels)
-
-        def kernel_only(i):
-            log_mel.mel_power(audio, n_mels)
 
         times = [device_ms(f, calls) for f in (plain, kernel, kernel, plain)]
         ms, plain_ms = (times[1] + times[2]) / 2, (times[0] + times[3]) / 2
@@ -1253,23 +1321,139 @@ def log_mel_phase(dev: torch.device) -> dict:
         nnz = int(torch.count_nonzero(fb).item())
         fft_flops = frames * (2.5 * n_fft * math.log2(n_fft) + 3 * n_freqs + 2 * nnz)
         bound_ms, bound_by = bound(4 * (seconds * 16_000 + frames * n_mels), fft_flops, F32_FLOPS)
-        # for information: the direct DFT the kernel computes (2 flops per
+        # for information: the earlier direct-DFT design's work (2 flops per
         # sample, bin and frame for each of re and im) with the bases and the
         # filterbank read once
         dft_bytes = 4 * (seconds * 16_000 + 2 * n_fft * n_freqs + n_freqs * n_mels + frames * n_mels)
         direct_dft_bound_ms = bound(dft_bytes, frames * (4 * n_fft * n_freqs + 3 * n_freqs + 2 * nnz),
                                     F32_FLOPS)[0]
         row = dict(seconds=seconds, n_mels=n_mels, max_abs_err=err, atol=LOG_MEL_ATOL, ms=ms, plain_ms=plain_ms,
-                   kernel_only_ms=device_ms(kernel_only, calls), library_ms=device_ms(library, calls),
-                   library_max_abs_diff=lib_diff, bound_ms=bound_ms, bound_by=bound_by,
-                   direct_dft_bound_ms=direct_dft_bound_ms)
+                   kernel_only_ms=ms, library_ms=device_ms(library, calls), library_max_abs_diff=lib_diff,
+                   bound_ms=bound_ms, bound_by=bound_by, direct_dft_bound_ms=direct_dft_bound_ms,
+                   repeat_bitwise_equal=True, launches_per_call=launched // 2,
+                   plan=log_mel.device_plan(False, 1, audio.shape[0], n_mels, dev, n_fft).describe())
         phase("log_mel", **row)
         rows.append(row)
         if (seconds, n_mels) == LOG_MEL_HEADLINE:
             headline = row
     check(headline is not None, "log_mel headline shape measured")
+
+    # a grid one block past what the card holds at once is refused unrun
+    audio = _speech_like(8 * 16_000, gen, dev)
+    plan = log_mel.device_plan(False, 1, audio.shape[0], 80, dev, mel.N_FFT)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    big = dataclasses.replace(plan, grid=plan.blocks_per_sm * sms + 1)
+    out = torch.full((80, 800), float("nan"), device=dev)
+    try:
+        log_mel._launch(False, audio[None], None, out, None, log_mel._tables("whisper", mel.N_FFT, mel.N_FFT, 80, dev),
+                        mel.N_FFT, mel.HOP_LENGTH, 80, 0.0, big)
+        refused = None
+    except RuntimeError as exc:
+        refused = str(exc)[:160]
+    torch.cuda.synchronize()
+    check(refused is not None and bool(torch.isnan(out).all()), f"an oversize cooperative grid ({big.grid} blocks) "
+          f"was refused and left its output untouched: {refused}")
+    phase("log_mel_oversize_grid", grid=big.grid, refused=refused)
     return {"max_abs_err": max_err, **{key: headline[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                                       "library_ms")}}
+                                                                       "library_ms")},
+            "parakeet": parakeet_log_mel_phase(dev, gen)}
+
+
+def parakeet_log_mel_phase(dev: torch.device, gen: torch.Generator) -> dict:
+    """Parakeet's batched frontend through the kernel (``parakeet_log_mel``,
+    one launch a batch) against its plain batched version at
+    ``PARAKEET_MEL_SHAPES``: rows of differing n_valid, at widths over 1 a
+    padding row (n_valid 0) that must come out exactly zero, within
+    ``PARAKEET_MEL_RTOL`` x max|plain|, a second run bitwise equal; device
+    times of the kernel, the plain batched version, the per-row plain loop
+    the port ran before (``models.parakeet.log_mel_frontend`` a row) and the
+    library yardstick: ``torch.stft`` (n_fft 512, hop 160, a symmetric
+    hann(400), constant padding) + power + filterbank + log + the masked
+    normalization.  Returns the headline row with the phase's largest
+    relative error."""
+    from s2s_tpu_torch.models import parakeet
+    from s2s_tpu_torch.ops import log_mel, mel
+
+    cfg = parakeet.ParakeetConfig()
+    fe = parakeet.frontend(cfg)
+    cos_b, sin_b, fb = log_mel.stft_tables(fe, dev)
+    window = torch.hann_window(fe.win_length, periodic=False, device=dev)
+    nnz = int(torch.count_nonzero(fb).item())
+    n_freqs = fe.n_fft // 2 + 1
+    max_rel, headline, calls = 0.0, None, 10
+    for width, seconds in PARAKEET_MEL_SHAPES:
+        n = seconds * 16_000
+        audio = torch.stack([_speech_like(n, gen, dev) for _ in range(width)])
+        n_valid = [n - (i * n) // (2 * width) for i in range(width)]
+        if width > 1:
+            n_valid[-1] = 0
+        for i, nv in enumerate(n_valid):
+            audio[i, nv:] = 0.0
+        nv_t = torch.tensor(n_valid, dtype=torch.int32, device=dev)
+        before = log_mel.parakeet_log_mel.launches
+        got, frames = log_mel.parakeet_log_mel(audio, nv_t, fe)
+        again, _ = log_mel.parakeet_log_mel(audio, nv_t, fe)
+        launched = log_mel.parakeet_log_mel.launches - before
+        want, want_frames = log_mel.parakeet_log_mel_reference(audio, nv_t, fe)
+
+        def library(i=0):
+            x = torch.cat([audio[:, :1], audio[:, 1:] - fe.preemphasis * audio[:, :-1]], dim=1)
+            x = torch.where(torch.arange(n, device=dev)[None, :] < nv_t[:, None], x, 0.0)
+            spec = torch.stft(x, fe.n_fft, fe.hop, win_length=fe.win_length, window=window, center=True,
+                              pad_mode="constant", return_complex=True)
+            logmel = torch.log((spec.real * spec.real + spec.imag * spec.imag).transpose(1, 2) @ fb
+                               + log_mel.LOG_ZERO_GUARD)
+            valid = torch.div(nv_t, fe.hop, rounding_mode="floor")
+            mask = (torch.arange(logmel.shape[1], device=dev)[None, :] < valid[:, None])[:, :, None]
+            denom = torch.clamp_min(valid, 1).float()[:, None, None]
+            mean = torch.where(mask, logmel, 0.0).sum(dim=1, keepdim=True) / denom
+            var = torch.where(mask, (logmel - mean) ** 2, 0.0).sum(dim=1, keepdim=True)
+            std = torch.sqrt(var / torch.clamp_min(denom - 1.0, 1.0))
+            return torch.where(mask, (logmel - mean) / (std + log_mel.NORM_EPS), 0.0)
+
+        lib_diff = (library() - want).abs().max().item()
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        tol = PARAKEET_MEL_RTOL * want.abs().max().item()
+        where = f"parakeet_log_mel {width} x {seconds} s"
+        check(got.shape == want.shape == (width, 1 + n // fe.hop, fe.n_mels) and math.isfinite(err) and err <= tol,
+              f"{where}: |d|={err} > {tol}")
+        check(torch.equal(frames, want_frames), f"{where}: valid frames {frames.tolist()}")
+        check(torch.equal(got, again), f"{where}: two runs differ")
+        check(launched == 2, f"{where}: {launched} launches for two calls")
+        check(width == 1 or torch.count_nonzero(got[-1]).item() == 0, f"{where}: the padding row is not zero")
+        max_rel = max(max_rel, err / want.abs().max().item())
+
+        def plain(i):
+            log_mel.parakeet_log_mel_reference(audio, nv_t, fe)
+
+        def kernel(i):
+            log_mel.parakeet_log_mel(audio, nv_t, fe)
+
+        def row_loop(i):
+            for r in range(width):
+                parakeet.log_mel_frontend(audio[r], n_valid[r], cfg)
+
+        times = [device_ms(f, calls) for f in (plain, kernel, row_loop, row_loop, kernel, plain)]
+        ms, plain_ms, loop_ms = (times[1] + times[4]) / 2, (times[0] + times[5]) / 2, (times[2] + times[3]) / 2
+        # the function's own minimum: audio and n_valid read once, features
+        # and frames written once; per valid frame a real FFT, the power and
+        # the filterbank's nonzero weights; per valid output the two passes
+        # of the normalization (about 5 flops)
+        valid_frames = sum(v // fe.hop for v in n_valid)
+        flops = valid_frames * (2.5 * fe.n_fft * math.log2(fe.n_fft) + 3 * n_freqs + 2 * nnz + 5 * fe.n_mels)
+        out_elems = width * (1 + n // fe.hop) * fe.n_mels
+        bound_ms, bound_by = bound(4 * (width * n + 2 * width + out_elems), flops, F32_FLOPS)
+        row = dict(rows=width, seconds=seconds, n_valid=n_valid, max_abs_err=err, rtol=PARAKEET_MEL_RTOL, bound=tol,
+                   ms=ms, plain_ms=plain_ms, row_loop_ms=loop_ms, library_ms=device_ms(library, calls),
+                   library_max_abs_diff=lib_diff, bound_ms=bound_ms, bound_by=bound_by,
+                   padding_row_zero=width > 1, repeat_bitwise_equal=True, launches_per_call=launched // 2,
+                   plan=log_mel.device_plan(True, width, n, fe.n_mels, dev, fe.n_fft, fe.hop).describe())
+        phase("parakeet_log_mel", **row)
+        if (width, seconds) == PARAKEET_MEL_HEADLINE:
+            headline = row
+    check(headline is not None, "parakeet_log_mel headline shape measured")
+    return {**headline, "max_rel_err": max_rel}
 
 
 def tiny_whisper_parity_phase(dev: torch.device) -> None:
@@ -1285,7 +1469,7 @@ def tiny_whisper_parity_phase(dev: torch.device) -> None:
     from s2s_tpu_torch.vad import smart_turn
     from s2s_tpu_torch.weights import tree_to_torch as to
 
-    before = fa.flash_attention.launches, log_mel.mel_power.launches
+    before = fa.flash_attention.launches, log_mel.log_mel_spectrogram.launches
     cfg = dataclasses.replace(whisper.WhisperConfig.test_tiny(), d_model=128, n_heads=2, n_audio_ctx=400)
     cpu = whisper.init_params(cfg, torch.Generator().manual_seed(12))
     cpu["head"] = {"w": torch.randn((128, 1), generator=torch.Generator().manual_seed(13)) * 0.3,
@@ -1313,7 +1497,7 @@ def tiny_whisper_parity_phase(dev: torch.device) -> None:
     check(prob_err <= 1e-4, f"smart turn probability cuda vs cpu |d|={prob_err}")
     spk_rel = ((out["cpu"][4] - out["cuda"][4]).abs().max() / out["cpu"][4].abs().max()).item()
     check(spk_rel <= 1e-4, f"speaker_from_reference cuda vs cpu rel {spk_rel}")
-    launches = fa.flash_attention.launches - before[0], log_mel.mel_power.launches - before[1]
+    launches = fa.flash_attention.launches - before[0], log_mel.log_mel_spectrogram.launches - before[1]
     check(launches[0] == 2 * cfg.n_enc_layers and launches[1] == 3,
           f"the tiny path launched flash {launches[0]} (want {2 * cfg.n_enc_layers}), log-mel {launches[1]} (want 3)")
     phase("tiny_whisper_parity", log_mel_abs_err=mel_err, encoder_rel_err=rel, tokens=len(out["cpu"][2]),
@@ -1471,7 +1655,7 @@ def main() -> int:
         attn = attention_phase(dev)
         tiny_parity_phase(dev)
         tiny_batched_parity_phase(dev)
-    serve_phase(dev)
+    single = serve_phase(dev)
     launches = batched_serve_phase(dev, smi)
     with no_tf32():
         dyn = int8_dyn_phase(dev, str(library))
@@ -1486,6 +1670,9 @@ def main() -> int:
     whisper_launches = whisper_serve_phase(dev, smi)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    mel_launches = {"whisper_serve": whisper_launches["log_mel"], "serve": single["parakeet_log_mel"],
+                    "batched_serve": launches["parakeet_log_mel"]}
+    print(smi[0])
     print(json.dumps({"kernels": [
         {"name": "int8_matmul", "route": "cuda", "source": "s2s_tpu_torch/csrc/int8_matmul.cu",
          "replaces": "s2s_tpu/ops/int8_matmul.py:39", "launches": launches["int8_matmul"],
@@ -1502,15 +1689,18 @@ def main() -> int:
         {"name": "flash_attention", "route": "cuda", "source": "s2s_tpu_torch/csrc/flash_attention.cu",
          "replaces": "s2s_tpu/ops/pallas_attention.py:68", "launches": whisper_launches["flash_attention"],
          **{k: flash[k] for k in keys}},
+        # both callers: the Whisper cell's log-mels, the Parakeet cells' frontends
         {"name": "log_mel", "route": "cuda", "source": "s2s_tpu_torch/csrc/log_mel.cu",
-         "replaces": "s2s_tpu/ops/pallas_mel.py:73", "launches": whisper_launches["log_mel"],
-         **{k: logmel[k] for k in keys}},
+         "replaces": "s2s_tpu/ops/pallas_mel.py:73", "launches": sum(mel_launches.values()),
+         "launches_by_caller": mel_launches, **{k: logmel[k] for k in keys},
+         "parakeet_frontend": {k: logmel["parakeet"][k] for k in ("rows", "seconds", "max_rel_err", "ms", "plain_ms",
+                                                                  "row_loop_ms", "bound_ms", "bound_by",
+                                                                  "library_ms")}},
         # the microbenchmark's kernel is #2's math: the W8A8 kernel, at its 16-row shape
         {"name": "w8a8_matmul", "route": "cuda", "source": "s2s_tpu_torch/csrc/int8_matmul_dyn.cu",
          "replaces": "scripts/microbench_w8a8.py:47", "launches": quant_launches["int8_matmul_dyn"],
          **{k: micro[k] for k in keys}},
     ]}))
-    print(smi[0])
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

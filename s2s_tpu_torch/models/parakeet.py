@@ -23,7 +23,7 @@ import torch.nn.functional as F
 
 from s2s_tpu_torch.models.common import Params, layer_norm, layer_slice, linear, n_stacked
 from s2s_tpu_torch.models.decoder_lm import normal
-from s2s_tpu_torch.ops.mel import mel_filter_bank
+from s2s_tpu_torch.ops import log_mel
 
 LOG_ZERO_GUARD = 2.0 ** -24
 NORM_EPS = 1e-5
@@ -93,27 +93,10 @@ class ParakeetConfig:
 # ---------------------------------------------------------------------------
 
 
-@lru_cache(maxsize=4)
-def _stft_basis(n_fft: int, win_length: int) -> tuple[np.ndarray, np.ndarray]:
-    """Windowed real-DFT bases (n_fft, n_fft//2+1): symmetric hann window
-    zero-padded to n_fft centered."""
-    window = np.zeros(n_fft, np.float64)
-    off = (n_fft - win_length) // 2
-    window[off : off + win_length] = np.hanning(win_length)
-    n = np.arange(n_fft)
-    k = np.arange(n_fft // 2 + 1)
-    angle = -2.0 * np.pi * np.outer(n, k) / n_fft
-    return (
-        (np.cos(angle) * window[:, None]).astype(np.float32),
-        (np.sin(angle) * window[:, None]).astype(np.float32),
-    )
-
-
-@lru_cache(maxsize=8)
-def _frontend_tables(cfg: ParakeetConfig, device: torch.device):
-    cos_b, sin_b = _stft_basis(cfg.n_fft, cfg.win_length)
-    fb = mel_filter_bank(cfg.n_mels, cfg.n_fft // 2 + 1, cfg.sample_rate)
-    return tuple(torch.from_numpy(a).to(device) for a in (cos_b, sin_b, fb))
+def frontend(cfg: ParakeetConfig) -> log_mel.Frontend:
+    """The frontend parameters of *cfg*, as the log-mel kernel takes them."""
+    return log_mel.Frontend(n_mels=cfg.n_mels, n_fft=cfg.n_fft, win_length=cfg.win_length, hop=cfg.hop_length,
+                            preemphasis=cfg.preemphasis, sample_rate=cfg.sample_rate)
 
 
 def log_mel_frontend(audio: torch.Tensor, n_valid: int, cfg: ParakeetConfig):
@@ -128,7 +111,7 @@ def log_mel_frontend(audio: torch.Tensor, n_valid: int, cfg: ParakeetConfig):
     x = F.pad(x, (pad, pad))
     n_frames = 1 + n // cfg.hop_length
     frames = x.unfold(0, cfg.n_fft, cfg.hop_length)[:n_frames]  # (T, n_fft)
-    cos_b, sin_b, fb = _frontend_tables(cfg, audio.device)
+    cos_b, sin_b, fb = log_mel.stft_tables(frontend(cfg), audio.device)
     re = frames @ cos_b
     im = frames @ sin_b
     mel = (re * re + im * im) @ fb
@@ -451,12 +434,15 @@ def transcribe_step_batch(params: Params, cfg: ParakeetConfig, audio: torch.Tens
     """Cross-session batched transcribe: mel -> encoder -> TDT decode for a
     batch of same-bucket utterances.  audio: (B, N) f32 on the weights'
     device, zero-padded rows; n_valid: valid samples per row.  Returns each
-    row's token ids.  Padding rows (``n_valid == 0``) stay invisible: their
-    frames are masked in the frontend and encoder, and their decode never
-    steps."""
-    mels, frames = zip(*(log_mel_frontend(audio[i], int(n_valid[i]), cfg) for i in range(audio.shape[0])))
-    encoded, _ = encode(params, cfg, torch.stack(mels), torch.tensor(frames, device=audio.device))
-    return tdt_greedy_decode_batch(params, cfg, encoded, [_sub_len_int(f, cfg.sub_layers) for f in frames])
+    row's token ids.  The frontend is one call of the batched log-mel
+    (:func:`s2s_tpu_torch.ops.log_mel.parakeet_log_mel`, the kernel on the
+    card).  Padding rows (``n_valid == 0``) stay invisible: their frames are
+    masked in the frontend and encoder, and their decode never steps."""
+    n_valid_t = torch.tensor([int(v) for v in n_valid], dtype=torch.int32, device=audio.device)
+    mels, frames = log_mel.parakeet_log_mel(audio, n_valid_t, frontend(cfg))  # one launch on the card
+    encoded, _ = encode(params, cfg, mels, frames)
+    return tdt_greedy_decode_batch(params, cfg, encoded,
+                                   [_sub_len_int(int(v) // cfg.hop_length, cfg.sub_layers) for v in n_valid])
 
 
 def transcribe_tokens(params: Params, cfg: ParakeetConfig, audio, n_valid: int | None = None,

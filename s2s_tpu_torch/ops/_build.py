@@ -126,8 +126,10 @@ def load() -> ctypes.CDLL:
             lib.s2s_flash_attention.restype = i32
             lib.s2s_flash_attention_tiles.argtypes = [ctypes.POINTER(i32)]
             lib.s2s_flash_attention_tiles.restype = None
-            lib.s2s_log_mel.argtypes = [ptr, i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
+            lib.s2s_log_mel.argtypes = [i32, *[ptr] * 9, *[i32] * 13, ctypes.c_float, ptr]
             lib.s2s_log_mel.restype = i32
+            lib.s2s_log_mel_blocks_per_sm.argtypes = [*[i32] * 8, ctypes.POINTER(i32)]
+            lib.s2s_log_mel_blocks_per_sm.restype = i32
             _lib = lib
         return _lib
 

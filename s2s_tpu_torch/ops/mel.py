@@ -6,8 +6,8 @@ the JAX package's, copied.  :func:`frame_audio` and
 reflect-pad n_fft//2, the final frame dropped, the DFT as two products with
 the bases, |.|^2, slaney mel (80 or 128 bins), log10 clamped to max-8,
 scaled (x+4)/4.  :func:`log_mel_spectrogram` is the plain version of the
-log-mel kernel (:mod:`s2s_tpu_torch.ops.log_mel`); the port's Parakeet
-frontend builds its own filterbank here.
+log-mel kernel (:mod:`s2s_tpu_torch.ops.log_mel`); Parakeet's frontend
+takes its filterbank and DFT bases (:func:`stft_basis`) from here.
 """
 
 from __future__ import annotations
@@ -75,6 +75,29 @@ def _dft_basis() -> tuple[np.ndarray, np.ndarray]:
     cos_b = (np.cos(angle) * window[:, None]).astype(np.float32)
     sin_b = (np.sin(angle) * window[:, None]).astype(np.float32)
     return cos_b, sin_b
+
+
+def centred_window(n_fft: int, win_length: int) -> np.ndarray:
+    """A symmetric hann(win_length) zero-padded to n_fft, centred (what
+    ``torch.stft`` does with win_length < n_fft), f64."""
+    window = np.zeros(n_fft, np.float64)
+    off = (n_fft - win_length) // 2
+    window[off : off + win_length] = np.hanning(win_length)
+    return window
+
+
+@lru_cache(maxsize=4)
+def stft_basis(n_fft: int, win_length: int) -> tuple[np.ndarray, np.ndarray]:
+    """Windowed real-DFT bases (n_fft, n_fft//2+1) of Parakeet's frontend:
+    the :func:`centred_window` in the bases."""
+    window = centred_window(n_fft, win_length)
+    n = np.arange(n_fft)
+    k = np.arange(n_fft // 2 + 1)
+    angle = -2.0 * np.pi * np.outer(n, k) / n_fft
+    return (
+        (np.cos(angle) * window[:, None]).astype(np.float32),
+        (np.sin(angle) * window[:, None]).astype(np.float32),
+    )
 
 
 @lru_cache(maxsize=8)

@@ -4,7 +4,11 @@ Weights come from the JAX ``init_params`` (``ParakeetConfig.test_tiny``, f32)
 and cross through ``s2s_tpu_torch.weights``; audio comes from a numpy seed.
 Mel and encoder outputs agree within 1e-4 * max|ref| (f32 sums in another
 order); TDT tokens are exact.  The transformers-generated fixture
-``tests/data/parakeet_parity.npz`` is the second anchor.
+``tests/data/parakeet_parity.npz`` is the second anchor.  The batched
+frontend (``ops.log_mel.parakeet_log_mel``, the log-mel kernel on the card,
+its plain batched version on the CPU) is held against ``jax.vmap`` of the
+JAX frontend at widths 1, 4 and 16 with a padding row, within the same
+1e-4 * max|ref|, and ``transcribe_step_batch`` calls it once a batch.
 """
 
 import os
@@ -20,6 +24,7 @@ import torch  # noqa: E402
 from s2s_tpu.models import parakeet as jpk  # noqa: E402
 from s2s_tpu_torch import weights  # noqa: E402
 from s2s_tpu_torch.models import parakeet as tpk  # noqa: E402
+from s2s_tpu_torch.ops import log_mel  # noqa: E402
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "data", "parakeet_parity.npz")
 
@@ -54,6 +59,68 @@ def test_mel_frontend_matches_jax(tiny, n_valid):
     tmel, tn = tpk.log_mel_frontend(torch.from_numpy(audio), nv, tcfg)
     assert int(jn) == tn
     _close(jmel, tmel)
+
+
+def _batch(width: int, n: int = 16_000, seed: int = 0):
+    """(width, n) noise rows zero-padded past differing n_valid; the first
+    row full, the last (width > 1) a padding row with n_valid 0."""
+    rng = np.random.default_rng(seed + width)
+    audio = (0.3 * rng.standard_normal((width, n))).astype(np.float32)
+    n_valid = rng.integers(3_000, n, width).astype(np.int32)
+    n_valid[0] = n
+    if width > 1:
+        n_valid[-1] = 0
+    for i, nv in enumerate(n_valid):
+        audio[i, nv:] = 0.0
+    return audio, n_valid
+
+
+@pytest.mark.parametrize("width", [1, 4, 16])
+def test_batched_frontend_matches_jax_vmap(tiny, width):
+    jcfg, _, tcfg, _ = tiny
+    audio, n_valid = _batch(width)
+    jmel, jn = jax.vmap(lambda a, v: jpk.log_mel_frontend(a, v, jcfg))(jnp.asarray(audio), jnp.asarray(n_valid))
+    before = log_mel.parakeet_log_mel.launches
+    tmel, tn = log_mel.parakeet_log_mel(torch.from_numpy(audio), torch.from_numpy(n_valid), tpk.frontend(tcfg))
+    assert log_mel.parakeet_log_mel.launches == before  # the CPU takes the plain version
+    np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
+    _close(jmel, tmel)
+    if width > 1:
+        assert not tmel[-1].any()  # the padding row is all zero
+
+
+def test_batched_frontend_matches_jax_vmap_at_128_mels():
+    """The full model's frontend (128 mels over 257 bins), width 4."""
+    jcfg, tcfg = jpk.ParakeetConfig(), tpk.ParakeetConfig()
+    audio, n_valid = _batch(4, seed=3)
+    jmel, jn = jax.vmap(lambda a, v: jpk.log_mel_frontend(a, v, jcfg))(jnp.asarray(audio), jnp.asarray(n_valid))
+    tmel, tn = log_mel.parakeet_log_mel(torch.from_numpy(audio), torch.from_numpy(n_valid), tpk.frontend(tcfg))
+    np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
+    _close(jmel, tmel)
+
+
+def test_transcribe_step_batch_runs_the_frontend_once(tiny, monkeypatch):
+    """One batched frontend call a batch, no per-row frontend; tokens as
+    JAX's ``transcribe_step_batch``."""
+    jcfg, jp, tcfg, tp = tiny
+    audio, n_valid = _batch(4, seed=7)
+    calls = []
+    real = log_mel.parakeet_log_mel
+
+    def counted(a, nv, fe):
+        calls.append((tuple(a.shape), nv.tolist()))
+        return real(a, nv, fe)
+
+    def per_row(*_):
+        raise AssertionError("the per-row frontend ran")
+
+    monkeypatch.setattr(log_mel, "parakeet_log_mel", counted)
+    monkeypatch.setattr(tpk, "log_mel_frontend", per_row)
+    got = tpk.transcribe_step_batch(tp, tcfg, torch.from_numpy(audio), n_valid.tolist())
+    assert calls == [((4, audio.shape[1]), n_valid.tolist())]
+    jtoks, jn = jpk.transcribe_step_batch(jp, jcfg, jnp.asarray(audio), jnp.asarray(n_valid))
+    assert got == [[int(x) for x in np.asarray(jtoks[i, : int(jn[i])])] for i in range(4)]
+    assert got[-1] == []
 
 
 def test_encoder_matches_jax(tiny):
