@@ -99,16 +99,47 @@ Phases, each printed on its own line:
    answered one must bring reply audio and ``response.done``; Smart Turn
    predictions with none failed, and launches of both new kernels that
    match the encodes (one flash launch per encoder layer, one log-mel per
-   encode).
+   encode);
+16. ``silero`` (run after phase 4): ``BatchedSileroVAD(max_slots=16)`` on
+   the card against the plain masked step on the CPU with the same
+   parameters over 64 ticks of noise, tones and silence, the active slots
+   moving over 1, 4 and 16, within ``SILERO_ATOL`` on every probability and
+   the final carry; a tick of one slot leaves the other rows' carry bitwise
+   unchanged, ``reset_slot`` zeroes its row only; the single-session
+   ``SileroVAD`` on the card against the CPU; a tick's device time (CUDA
+   graph), wall time with the host round trip and its kernels and copies
+   (``torch.profiler``) at 1 and 16 active slots;
+17. ``talk`` (inside phase 5, against its running server): the headless
+   client of ``s2s-tpu-torch talk`` streams the voice turn's WAV at real
+   time and must write non-silent reply PCM;
+18. ``head_logits``: a distil-large-v3 decode step after the first must
+   allocate less than half its f32 embedding (the heads keep their f32
+   weight once, ``models/common.py::f32_weight``); the Whisper, codec and
+   code-predictor heads timed with the kept weight, the per-call cast it
+   replaced and ``torch.mm(..., out_dtype=torch.float32)``;
+19. ``resample``: ``torch_resample_poly`` on the card against scipy and
+   against the same function on the CPU at ``RESAMPLE_RATES``, within
+   ``RESAMPLE_ATOL``;
+20. ``deployment_serve``: ``examples/smollm2-qwen3tts-tpu/config.json``
+   through its JSON form (``deployment_config``: no checkpoint or tokenizer
+   keys, the server on 127.0.0.1 port 0) after the earlier serves shut
+   down: two text turns (``DEPLOYMENT_REPLY``: at most 64 tokens a reply)
+   answered with audio and response.done, then 3 s of
+   audio streamed in: Silero must tick once per 512 samples with every
+   probability in [0, 1], no error event may come; the int8 and
+   decode-attention kernels must launch in the phase.
 
 Phases 3, 4, 8, 9, 10, 12, 13 and 14 run with TF32 off, so that f32 products
-are compared in full f32; the serves run with torch's defaults, as
-``s2s_tpu_torch.cli`` does.  Every kernel's line and the JSON line give its
+are compared in full f32; the serves and phases 16-20 run with torch's
+defaults, as ``s2s_tpu_torch.cli`` does.  A ``seconds`` line gives each
+phase's time.  Every kernel's line and the JSON line give its
 bound: the larger of the bytes it must move over 3.35 TB/s and its
 operations over the card's peak for their type.
 
 After the phases come the card's ``nvidia-smi`` name and power limit, then,
-on the line before the last, a JSON object of the kernels; the last line is
+on the line before the last, a JSON object of the kernels (``launches`` from
+their main paths' serves; the int8 and decode-attention entries also carry
+the deployment serve's as ``deployment_serve_launches``); the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
 before those lines.
 """
@@ -233,6 +264,29 @@ QUANT_SESSIONS = 8
 QUANT_SERVE_FLAGS = [*BATCHED_FLAGS, *QUANT_FLAGS, "--num_pipelines", str(QUANT_SESSIONS),
                      "--llm_batched_slots", str(QUANT_SESSIONS), "--tts_batched_slots", str(QUANT_SESSIONS)]
 TEXT = "What is the weather like today?"
+#: Silero: the batched service's slots and ticks (noise, tones and silence;
+#: the active slots move over 1, 4 and 16 of them, 16 ticks, 16, then 32)
+SILERO_SLOTS = 16
+SILERO_TICKS = 64
+#: Silero's pass mark on the probabilities and the carry: the JAX package's
+#: own batched-vs-single bound (``tests/test_batcher.py``), both sides f32
+SILERO_ATOL = 1e-5
+#: the device resampler's rate pairs, and its pass mark against scipy and
+#: against the same function on the CPU: the JAX package's bound of
+#: ``jax_resample_poly`` against scipy (``tests/test_audio_frontend.py``)
+RESAMPLE_RATES = [(24_000, 16_000), (16_000, 24_000), (48_000, 16_000)]
+RESAMPLE_ATOL = 2e-5
+#: the repo's deployment config (Silero VAD, Smart Turn, int8 LLM and TTS,
+#: speculation, 16 TTS slots); its checkpoints and tokenizers are not in the
+#: repository, so those keys are left out and the models random-init
+DEPLOYMENT_CONFIG = "examples/smollm2-qwen3tts-tpu/config.json"
+#: the audio streamed into the deployment serve after its text turns
+DEPLOYMENT_AUDIO_S = (1.5, 1.5)  # tone, then silence
+#: what the deployment serve's text turns ask of ``response.create``: replies
+#: of at most 64 tokens, the other serves' ``--llm_max_new_tokens`` (the
+#: config's own cap, 256, made random-init turns of 25 s of audio and 80-160
+#: s each on an H100, a quarter of the whole run)
+DEPLOYMENT_REPLY = {"max_output_tokens": 64}
 L2_BYTES = 50 << 20
 #: H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, dense bf16 FLOP/s, dense int8 OP/s
 HBM_BPS = 3.35e12
@@ -984,11 +1038,11 @@ async def _session(url: str, actions, until, max_s: float):
     return events
 
 
-def _text_turn(text: str):
+def _text_turn(text: str, response: dict | None = None):
     return [
         (0, {"type": "conversation.item.create", "item": {
             "type": "message", "role": "user", "content": [{"type": "input_text", "text": text}]}}),
-        (0, {"type": "response.create", "response": {}}),
+        (0, {"type": "response.create", "response": response or {}}),
     ]
 
 
@@ -1034,8 +1088,9 @@ def _transcribed_and_settled(events, now) -> bool:
 
 def serve_phase(dev: torch.device) -> dict[str, int]:
     """The single-session serve: a warm-up text turn, then a measured text
-    turn and a voice turn; returns the int8 kernel's and the Parakeet
-    frontend's launches over those."""
+    turn and a voice turn, then the ``talk`` client's voice turn against the
+    same server (``talk_phase``); returns the int8 kernel's and the Parakeet
+    frontend's launches over the measured turns."""
     from s2s_tpu_torch import cli
     from s2s_tpu_torch.ops import int8_matmul as mm
     from s2s_tpu_torch.ops import log_mel
@@ -1060,6 +1115,7 @@ def serve_phase(dev: torch.device) -> dict[str, int]:
             audio = asyncio.run(_session(url, _audio_turn(), _transcribed_and_settled, 600))
             torch.cuda.synchronize()
             launches, mel_launches = mm.int8_matmul.launches, log_mel.parakeet_log_mel.launches
+        talk_phase(url, server.pool)
     finally:
         stop.set()
         manager.stop()
@@ -1620,6 +1676,357 @@ def whisper_serve_phase(dev: torch.device, card: list[str]) -> dict[str, int]:
     return launches
 
 
+def head_logits_phase(dev: torch.device, card: list[str]) -> dict:
+    """The heads' f32 logits with no copy of their weight a call: one greedy
+    step of distil-large-v3 (random weights; its encoder output stands in as
+    noise of its shape) after the first step, which keeps the f32 weight,
+    must allocate less than half the f32 embedding; and the device time of
+    the Whisper, talker codec and code-predictor heads as the product with
+    the kept f32 weight, as the per-call cast it replaced, and as a bf16
+    product with f32 output (``torch.mm(..., out_dtype=torch.float32)``,
+    null where this PyTorch refuses it)."""
+    from s2s_tpu_torch.models import qwen3_tts, whisper
+    from s2s_tpu_torch.models.common import f32_weight
+
+    cfg = whisper.WhisperConfig.distil_large_v3()
+    params = whisper.init_params(cfg, torch.Generator(device=dev).manual_seed(31), dev)
+    encoded = torch.randn((1, cfg.n_audio_ctx, cfg.d_model), generator=torch.Generator(device=dev).manual_seed(32),
+                          device=dev).to(cfg.dtype)
+    state = whisper.init_decode_state(params, cfg, encoded)
+    token = torch.full((1,), whisper.SOT, dtype=torch.int32, device=dev)
+    logits, state = whisper.decode_step(params, cfg, token, state)  # keeps the f32 embedding
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    logits, state = whisper.decode_step(params, cfg, torch.argmax(logits, -1).to(torch.int32), state)
+    torch.cuda.synchronize()
+    step_bytes = torch.cuda.max_memory_allocated(dev) - base
+    emb_f32_bytes = params["tok_emb"].numel() * 4
+    check(step_bytes < emb_f32_bytes // 2,
+          f"a Whisper decode step allocated {step_bytes} bytes (the f32 embedding is {emb_f32_bytes})")
+
+    tts = qwen3_tts.Qwen3TTSConfig.qwen3_tts_12hz_1_7b()
+    gen = torch.Generator(device=dev).manual_seed(33)
+
+    def bf16(*shape):
+        return torch.randn(shape, generator=gen, device=dev).bfloat16()
+
+    # (tree, key, stored (out, in), input width): Whisper's tied embedding, the talker's codec head, one of the
+    # code predictor's heads
+    heads = {"whisper": (params, "tok_emb", True, cfg.d_model),
+             "codec_head": ({"codec_head": bf16(tts.lm.d_model, tts.codec_vocab)}, "codec_head", False,
+                            tts.lm.d_model),
+             "cp_head": ({"cp_head": bf16(tts.cp.d_model, tts.codebook_size)}, "cp_head", False, tts.cp.d_model)}
+    rows = {}
+    for name, (tree, key, transposed, width) in heads.items():
+        w = tree[key].T if transposed else tree[key]
+        w32 = f32_weight(tree, key).T if transposed else f32_weight(tree, key)
+        x = bf16(1, width)
+        kept = x.float() @ w32
+        check(torch.equal(kept, x.float() @ w.float()), f"{name}: the kept f32 weight gives the per-call cast's bits")
+        row = {"kept_f32_ms": device_ms(lambda i: x.float() @ w32, 20),
+               "per_call_cast_ms": device_ms(lambda i: x.float() @ w.float(), 20)}
+        try:
+            out = torch.mm(x, w, out_dtype=torch.float32)
+            row["bf16_f32_out_ms"] = device_ms(lambda i: torch.mm(x, w, out_dtype=torch.float32), 20)
+            row["bf16_f32_out_max_abs_err"] = (out - kept).abs().max().item()
+        except (RuntimeError, TypeError) as exc:
+            row["bf16_f32_out_ms"] = None
+            row["bf16_f32_out_error"] = str(exc)[:120]
+        row["weight"] = list(w.shape)
+        rows[name] = row
+    del params, state, encoded
+    phase("head_logits", card=card, whisper_step_bytes=step_bytes, whisper_embedding_f32_bytes=emb_f32_bytes,
+          heads=rows)
+    return rows
+
+
+def _silero_chunks(rng: np.random.Generator, tick: int, slots, n: int) -> np.ndarray:
+    """One tick's (n, CHUNK) input: each active slot's row noise, a tone or
+    silence by (tick + slot) % 3; inactive rows zero."""
+    from s2s_tpu_torch.models.silero_vad import CHUNK, SR
+
+    x = np.zeros((n, CHUNK), np.float32)
+    t = (tick * CHUNK + np.arange(CHUNK)) / SR
+    for s in slots:
+        kind = (tick + s) % 3
+        if kind == 0:
+            x[s] = rng.standard_normal(CHUNK) * 0.1
+        elif kind == 1:
+            x[s] = 0.3 * np.sin(2 * np.pi * (180 + 20 * s) * t)
+    return x
+
+
+def silero_phase(dev: torch.device, card: list[str]) -> dict:
+    """``BatchedSileroVAD(max_slots=16)`` on the card (random weights from
+    seed 0, under torch's defaults, as the serve runs it) against the plain
+    masked step on the CPU with the same parameters over ``SILERO_TICKS``
+    ticks; slot isolation and ``reset_slot``; the single-session
+    ``SileroVAD`` on the card against the CPU; then one tick's device time
+    (CUDA graph of the masked step), its wall time with the host round trip
+    (``_run_batch``: pack, copy in, step, copy the probabilities out), and
+    its kernels and copies from ``torch.profiler``, at 1 and 16 active slots."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from s2s_tpu_torch.models import silero_vad
+    from s2s_tpu_torch.runtime.batcher import BatchedSileroVAD
+    from s2s_tpu_torch.weights import tree_to_torch
+
+    n = SILERO_SLOTS
+    service = BatchedSileroVAD(max_slots=n, device=dev)
+    params = tree_to_torch(service.params, "cpu")
+    state = silero_vad.SileroState.create(n)
+    rng = np.random.default_rng(23)
+    prob_err, widths = 0.0, []
+    for tick in range(SILERO_TICKS):
+        width = (1, 4, 16)[min(tick // 16, 2)]
+        slots = sorted(int(s) for s in rng.choice(n, width, replace=False))
+        widths.append(width)
+        x = _silero_chunks(rng, tick, slots, n)
+        probs = service._run_batch(slots, [x[s] for s in slots])
+        plain, new = silero_vad.step(params, state, torch.from_numpy(x))
+        active = torch.zeros((n, 1), dtype=torch.bool)
+        active[slots] = True
+        state = silero_vad.SileroState(*(torch.where(active, a, b) for a, b in zip(new, state)))
+        prob_err = max(prob_err, max(abs(p - plain[s].item()) for p, s in zip(probs, slots)))
+        check(all(0.0 <= p <= 1.0 for p in probs), f"silero tick {tick}: probabilities in [0, 1]: {probs}")
+    carry_err = max((a.cpu() - b).abs().max().item() for a, b in zip(service._state, state))
+    check(prob_err <= SILERO_ATOL and carry_err <= SILERO_ATOL,
+          f"batched Silero on the card vs the plain step on the CPU: |dprob| {prob_err}, |dcarry| {carry_err} "
+          f"(bound {SILERO_ATOL})")
+
+    before = [t.clone() for t in service._state]
+    service._run_batch([0], [rng.standard_normal(silero_vad.CHUNK).astype(np.float32) * 0.1])
+    isolated = all(torch.equal(a[1:], b[1:]) for a, b in zip(before, service._state))
+    check(isolated, "a tick of slot 0 left every other slot's carry bitwise unchanged")
+    before = [t.clone() for t in service._state]
+    service.reset_slot(5)
+    reset = all(torch.equal(t[5], torch.zeros_like(t[5])) and torch.equal(torch.cat([t[:5], t[6:]]),
+                                                                           torch.cat([b[:5], b[6:]]))
+                for t, b in zip(service._state, before))
+    check(reset, "reset_slot(5) zeroed row 5 and left the others unchanged")
+
+    single = silero_vad.SileroVAD(params=service.params, device=dev)
+    plain_state, single_err = silero_vad.SileroState.create(1), 0.0
+    for tick in range(8):
+        x = _silero_chunks(rng, tick, [0], 1)
+        plain, plain_state = silero_vad.step(params, plain_state, torch.from_numpy(x))
+        single_err = max(single_err, abs(single(x[0]) - plain[0].item()))
+    check(single_err <= SILERO_ATOL, f"single-session Silero on the card vs the CPU |dprob| {single_err}")
+
+    timing = {}
+    for width in (1, n):
+        timer = BatchedSileroVAD(max_slots=n, params=service.params, device=dev)
+        slots = list(range(width))
+        x = _silero_chunks(rng, 0, slots, n)
+        arrays = [x[s] for s in slots]
+        packed = np.zeros((n, silero_vad.CHUNK + 1), np.float32)
+        packed[slots, : silero_vad.CHUNK] = x[slots]
+        packed[slots, silero_vad.CHUNK] = 1.0
+        packed_dev = torch.from_numpy(packed).to(dev)
+        device_tick = device_ms(lambda i: timer.masked_step(packed_dev), 20)
+        for _ in range(10):
+            timer._run_batch(slots, arrays)
+        t0 = time.perf_counter()
+        for _ in range(100):
+            timer._run_batch(slots, arrays)
+        wall = (time.perf_counter() - t0) / 100
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            timer._run_batch(slots, arrays)
+            torch.cuda.synchronize()
+        device = [e.name() for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == torch.autograd.DeviceType.CUDA]
+        copies = sum(1 for name in device if name.startswith(("Memcpy", "Memset")))
+        timing[width] = {"device_ms": device_tick, "wall_ms": wall * 1e3, "kernels": len(device) - copies,
+                         "copies": copies}
+        timer.close()
+    service.close()
+    result = {"slots": n, "ticks": SILERO_TICKS, "active_widths": sorted(set(widths)), "max_abs_prob_err": prob_err,
+              "carry_max_abs_err": carry_err, "bound": SILERO_ATOL, "slot_isolation": isolated, "reset_slot": reset,
+              "single_session_max_abs_err": single_err, "tick": timing}
+    phase("silero", card=card, **result)
+    return result
+
+
+def resample_phase(dev: torch.device) -> dict:
+    """``torch_resample_poly`` on the card against scipy and against the same
+    function on the CPU (its plain version), 1 s of noise and a tone at each
+    of ``RESAMPLE_RATES``, with the device time of a call."""
+    import scipy.signal
+
+    from s2s_tpu_torch.audio.resample import torch_resample_poly
+
+    rng = np.random.default_rng(27)
+    rows = []
+    for from_rate, to_rate in RESAMPLE_RATES:
+        t = np.arange(from_rate) / from_rate
+        x = (0.2 * rng.standard_normal(from_rate) + 0.3 * np.sin(2 * np.pi * 440 * t)).astype(np.float32)
+        x_dev = torch.from_numpy(x).to(dev)
+        out = torch_resample_poly(x_dev, from_rate, to_rate)
+        g = math.gcd(from_rate, to_rate)
+        ref = scipy.signal.resample_poly(x, to_rate // g, from_rate // g)
+        plain = torch_resample_poly(torch.from_numpy(x), from_rate, to_rate).numpy()
+        got = out.cpu().numpy()
+        check(got.shape == ref.shape, f"resample {from_rate}->{to_rate}: shape {got.shape} vs scipy {ref.shape}")
+        err_scipy, err_plain = float(np.abs(got - ref).max()), float(np.abs(got - plain).max())
+        check(err_scipy <= RESAMPLE_ATOL and err_plain <= RESAMPLE_ATOL,
+              f"resample {from_rate}->{to_rate}: |d| vs scipy {err_scipy}, vs the CPU {err_plain}")
+        rows.append({"from": from_rate, "to": to_rate, "samples_out": int(got.shape[0]),
+                     "max_abs_err_scipy": err_scipy, "max_abs_err_plain": err_plain, "bound": RESAMPLE_ATOL,
+                     "ms": device_ms(lambda i: torch_resample_poly(x_dev, from_rate, to_rate), 10)})
+    phase("resample", rows=rows)
+    return {"rows": rows}
+
+
+def _voice_pcm(freq: float = 220.0, silence_s: float = 1.0) -> np.ndarray:
+    """The voice turn's audio as PCM16 at 16 kHz: 0.25 s of silence, 2 s of a
+    modulated tone, *silence_s* of silence."""
+    rate = 16_000
+    t = np.arange(2 * rate) / rate
+    speech = 0.3 * np.sin(2 * np.pi * freq * t) * (1 + 0.5 * np.sin(2 * np.pi * 3 * t))
+    pcm = np.concatenate([np.zeros(rate // 4), speech, np.zeros(int(silence_s * rate))])
+    return (np.clip(pcm, -1, 1) * 32767).astype(np.int16)
+
+
+def talk_phase(url: str, pool) -> dict:
+    """The headless client (``s2s_tpu_torch.client.run_realtime_audio_client``,
+    as ``s2s-tpu-torch talk --input_wav ... --output_wav ...`` runs it)
+    against a running serve, once its pipeline units (*pool*) are free: the
+    voice turn's audio in at real time, the reply's PCM out, which must not
+    be silence."""
+    import tempfile
+    import wave
+    from pathlib import Path
+    from types import SimpleNamespace
+
+    from s2s_tpu_torch import client
+
+    with tempfile.TemporaryDirectory() as tmp:
+        in_wav, out_wav = Path(tmp) / "in.wav", Path(tmp) / "out.wav"
+        with wave.open(str(in_wav), "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(16_000)
+            w.writeframes(_voice_pcm().tobytes())
+        deadline = time.perf_counter() + 60  # the client takes no retry: wait until the last session is released
+        while any(unit.session is not None for unit in pool) and time.perf_counter() < deadline:
+            time.sleep(0.25)
+        t0 = time.perf_counter()
+        client.run_realtime_audio_client(SimpleNamespace(url=url, input_wav=str(in_wav), output_wav=str(out_wav),
+                                                         instructions=None, voice=None, sample_rate=16_000))
+        seconds = time.perf_counter() - t0
+        check(out_wav.exists(), "talk: the client wrote the reply's audio")
+        with wave.open(str(out_wav)) as w:
+            rate, pcm = w.getframerate(), np.frombuffer(w.readframes(w.getnframes()), np.int16)
+    check(pcm.size > 0 and np.abs(pcm.astype(np.int32)).max() > 0, "talk: the reply's audio is not silence")
+    result = {"seconds": seconds, "reply_audio_seconds": pcm.size / rate,
+              "peak": int(np.abs(pcm.astype(np.int32)).max())}
+    phase("talk", **result)
+    return result
+
+
+def deployment_config(tmp: str) -> str:
+    """``DEPLOYMENT_CONFIG`` as served here: its ``checkpoint`` and
+    ``tokenizer`` keys left out, its server on 127.0.0.1 port 0; written to
+    *tmp*, returns the path."""
+    from pathlib import Path
+
+    config = json.loads((Path(__file__).resolve().parent / DEPLOYMENT_CONFIG).read_text())
+    for section in ("stt", "llm", "tts"):
+        config[section] = {k: v for k, v in config[section].items() if k not in ("checkpoint", "tokenizer")}
+    config["server"] = {"host": "127.0.0.1", "port": 0}
+    path = Path(tmp) / "config.json"
+    path.write_text(json.dumps(config))
+    return str(path)
+
+
+def deployment_serve_phase(dev: torch.device, card: list[str]) -> dict[str, int]:
+    """The repo's deployment config through its JSON form on the card, after
+    the earlier serves shut down: build, two text turns (audio deltas and
+    ``response.done``), then ``DEPLOYMENT_AUDIO_S`` of audio streamed into a
+    session; Silero must tick once per 512 samples received with every
+    probability in [0, 1], and no error event may come.  ``speech_started``
+    is printed (0 with random Silero weights; not a pass condition).  Counts
+    the int8 and decode-attention kernels' launches from the first text turn
+    to the end, each > 0; returns them."""
+    import tempfile
+
+    from s2s_tpu_torch import cli
+    from s2s_tpu_torch.models import silero_vad
+    from s2s_tpu_torch.ops import decode_attention as da
+    from s2s_tpu_torch.ops import int8_matmul as mm
+    from s2s_tpu_torch.registry import GLOBAL_MODEL_CACHE
+
+    ticks: list[float] = []
+    real_call = silero_vad.SileroVAD.__call__
+
+    def counted_call(self, chunk, sr=silero_vad.SR):
+        prob = real_call(self, chunk, sr)
+        ticks.append(prob)
+        return prob
+
+    tone_s, silence_s = DEPLOYMENT_AUDIO_S
+    rate = 16_000
+    t = np.arange(int(tone_s * rate)) / rate
+    pcm = np.concatenate([0.3 * np.sin(2 * np.pi * 220 * t), np.zeros(int(silence_s * rate))])
+    pcm16 = (pcm * 32767).astype(np.int16).tobytes()
+    step = rate // 10 * 2  # 100 ms a append
+    appends = [(0.0, {"type": "input_audio_buffer.append", "audio": base64.b64encode(pcm16[i : i + step]).decode()})
+               for i in range(0, len(pcm16), step)]
+    want_ticks = len(pcm16) // 2 // silero_vad.CHUNK
+
+    torch.cuda.empty_cache()
+    silero_vad.SileroVAD.__call__ = counted_call
+    stop = threading.Event()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            manager, server, args = cli.build_from_argv(["--device", "cuda", deployment_config(tmp)], stop)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+        check(args.vad.backend == "silero" and args.vad.smart_turn, "the deployment config: Silero and Smart Turn")
+        manager.start()
+        try:
+            check(server.started.wait(60), "server started")
+            url = f"ws://127.0.0.1:{server.bound_port}/v1/realtime"
+            mm.int8_matmul.launches = da.concat_attention.launches = 0
+            texts = [asyncio.run(_session(url, _text_turn(f"{TEXT} Turn {i}.", DEPLOYMENT_REPLY), _response_done, 600))
+                     for i in range(2)]
+            ticks.clear()
+
+            def all_ticked(events, now):
+                return len(ticks) >= want_ticks and now > tone_s + silence_s + 1.0
+
+            audio = asyncio.run(_session(url, appends, all_ticked, 120))
+            time.sleep(1.0)  # any tick past the count would show here
+            torch.cuda.synchronize()
+            launches = {"int8_matmul": mm.int8_matmul.launches, "decode_attention": da.concat_attention.launches}
+            probs = list(ticks)
+        finally:
+            stop.set()
+            manager.stop()
+            GLOBAL_MODEL_CACHE.clear()
+    finally:
+        silero_vad.SileroVAD.__call__ = real_call
+
+    turns = []
+    for i, events in enumerate(texts):
+        reply, done = _reply(events, f"deployment text turn {i}")
+        turns.append({"ttfa_s": _first_audio_s(events), "turn_s": done, "audio_seconds": reply.size / 24_000})
+    errors = [e for events in (*texts, audio) for _, e in events if e["type"] == "error"]
+    check(not errors, f"deployment serve: no error events ({errors[:3]})")
+    check(len(probs) == want_ticks, f"Silero ticked {len(probs)} times for {want_ticks} chunks of 512 samples")
+    check(all(0.0 <= p <= 1.0 for p in probs), "Silero's probabilities lie in [0, 1]")
+    check(all(v > 0 for v in launches.values()), f"the int8 and decode-attention kernels launched: {launches}")
+    phase("deployment_serve", card=card, config=DEPLOYMENT_CONFIG, response=DEPLOYMENT_REPLY, build_s=build_s,
+          text_turns=turns,
+          audio_samples=len(pcm16) // 2, silero_ticks=len(probs), silero_prob_min=min(probs),
+          silero_prob_max=max(probs),
+          speech_started=sum(1 for _, e in audio if e["type"] == "input_audio_buffer.speech_started"),
+          launches=launches)
+    return launches
+
+
 def _first_audio_s(events) -> float:
     return next(t for t, e in events if e["type"] == "response.output_audio.delta")
 
@@ -1648,26 +2055,43 @@ def main() -> int:
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()
     phase("card", nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
           device=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
+    seconds: dict[str, float] = {}
+
+    def run(name: str, fn, *args, tf32: bool = True):
+        """Run one phase (with TF32 off unless *tf32*), keeping its seconds."""
+        t0 = time.perf_counter()
+        with contextlib.nullcontext() if tf32 else no_tf32():
+            result = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return result
+
+    t0 = time.perf_counter()
     library, _ = _build.build()
+    seconds["build"] = time.perf_counter() - t0
     phase("build", library=str(library.name), seconds=_build.build_seconds)
-    with no_tf32():
-        int8 = weight_only_phase(dev, "int8")
-        attn = attention_phase(dev)
-        tiny_parity_phase(dev)
-        tiny_batched_parity_phase(dev)
-    single = serve_phase(dev)
-    launches = batched_serve_phase(dev, smi)
-    with no_tf32():
-        dyn = int8_dyn_phase(dev, str(library))
-        int4 = weight_only_phase(dev, "int4")
-        micro = w8a8_microbench_phase(dev, dyn["rows"])
-        tiny_quant_parity_phase(dev)
-    quant_launches = quant_serve_phase(dev, smi)
-    with no_tf32():
-        flash = flash_attention_phase(dev)
-        logmel = log_mel_phase(dev)
-        tiny_whisper_parity_phase(dev)
-    whisper_launches = whisper_serve_phase(dev, smi)
+    int8 = run("int8_matmul", weight_only_phase, dev, "int8", tf32=False)
+    attn = run("decode_attention", attention_phase, dev, tf32=False)
+    run("tiny_parity", tiny_parity_phase, dev, tf32=False)
+    run("tiny_batched_parity", tiny_batched_parity_phase, dev, tf32=False)
+    # under torch's defaults, as the serve runs it; before any other profiler session in this process (a
+    # profiler started after the traced round's dropped some or all of a tick's device events on an H100)
+    run("silero", silero_phase, dev, smi)
+    single = run("serve", serve_phase, dev)
+    launches = run("batched_serve", batched_serve_phase, dev, smi)
+    dyn = run("int8_matmul_dyn", int8_dyn_phase, dev, str(library), tf32=False)
+    int4 = run("int4_matmul", weight_only_phase, dev, "int4", tf32=False)
+    micro = run("w8a8_microbench", w8a8_microbench_phase, dev, dyn["rows"], tf32=False)
+    run("tiny_quant_parity", tiny_quant_parity_phase, dev, tf32=False)
+    quant_launches = run("quant_serve", quant_serve_phase, dev, smi)
+    flash = run("flash_attention", flash_attention_phase, dev, tf32=False)
+    logmel = run("log_mel", log_mel_phase, dev, tf32=False)
+    run("tiny_whisper_parity", tiny_whisper_parity_phase, dev, tf32=False)
+    whisper_launches = run("whisper_serve", whisper_serve_phase, dev, smi)
+    # the new paths run under torch's defaults, as the serve does
+    run("head_logits", head_logits_phase, dev, smi)
+    run("resample", resample_phase, dev)
+    deployment = run("deployment_serve", deployment_serve_phase, dev, smi)
+    phase("seconds", **seconds)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     mel_launches = {"whisper_serve": whisper_launches["log_mel"], "serve": single["parakeet_log_mel"],
@@ -1676,10 +2100,10 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": "int8_matmul", "route": "cuda", "source": "s2s_tpu_torch/csrc/int8_matmul.cu",
          "replaces": "s2s_tpu/ops/int8_matmul.py:39", "launches": launches["int8_matmul"],
-         **{k: int8[k] for k in keys}},
+         "deployment_serve_launches": deployment["int8_matmul"], **{k: int8[k] for k in keys}},
         {"name": "decode_attention", "route": "cuda", "source": "s2s_tpu_torch/csrc/decode_attention.cu",
          "replaces": "s2s_tpu/ops/decode_attention.py:44", "launches": launches["decode_attention"],
-         **{k: attn[k] for k in keys}},
+         "deployment_serve_launches": deployment["decode_attention"], **{k: attn[k] for k in keys}},
         {"name": "int8_matmul_dyn", "route": "cuda", "source": "s2s_tpu_torch/csrc/int8_matmul_dyn.cu",
          "replaces": "s2s_tpu/ops/int8_matmul.py:80", "launches": quant_launches["int8_matmul_dyn"],
          **{k: dyn[k] for k in keys}},

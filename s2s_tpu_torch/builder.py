@@ -2,11 +2,13 @@
 
 Builds the port's units over its own copies of the host pieces
 (``PipelineUnit``, ``RealtimeService``, ``RealtimeServer``, the VAD handler,
-the transcription notifier and the LM output processor) and the port's
-registry.  ``--num_pipelines N`` builds N units
+the transcription notifier, the LM output processor and the LLM proxy) and
+the port's registry.  ``--num_pipelines N`` builds N units
 behind one server; the registry shares one weight set and one batched engine
-per model among them.  Options that need an unported piece raise at build
-time and name their ROADMAP item.
+per model among them, and with Silero one batched VAD serves every unit's
+ticks.  ``--profile_dir`` adds a ``torch.profiler`` trace for the life of
+the serve.  Options that need an unported piece raise at build time and
+name their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -38,22 +40,18 @@ logger = logging.getLogger(__name__)
 
 def check_supported(args: ParsedArguments) -> None:
     """Raise for every option whose device code is not ported yet."""
-    if args.vad.backend != "energy":
-        raise NotImplementedError(
-            f"--vad_backend {args.vad.backend}: only the energy VAD runs in s2s_tpu_torch so far "
-            "(Silero is ROADMAP queue 1 item 3)"
-        )
     if args.vad.enhancer_checkpoint:
         raise NotImplementedError("--vad_enhancer_checkpoint: DeepFilter is ROADMAP queue 1 item 7")
-    if args.module.profile_dir:
-        raise NotImplementedError("--profile_dir drives the JAX profiler; not ported to s2s_tpu_torch")
     if args.module.model_parallel > 1:
         raise NotImplementedError("--model_parallel: tensor-parallel serving is ROADMAP queue 1 item 8")
 
 
 def build_pipeline_unit(index: int, args: ParsedArguments, stop_event: threading.Event,
-                        device: torch.device) -> PipelineUnit:
-    """One unit: queues, control plane, service, handler chain."""
+                        device: torch.device, vad_model=None) -> PipelineUnit:
+    """One unit: queues, control plane, service, handler chain.  Without a
+    *vad_model*, the energy backend gets its own ``EnergyVAD`` (host
+    arithmetic with per-session state) and Silero is built by the VAD
+    handler on *device*."""
     input_queue: Queue = Queue()
     spoken_prompt_queue: Queue = Queue()
     stt_output_queue: Queue = Queue()
@@ -78,10 +76,13 @@ def build_pipeline_unit(index: int, args: ParsedArguments, stop_event: threading
             device=device,
         )
 
+    if vad_model is None and args.vad.backend == "energy":
+        vad_model = EnergyVAD()
+
     vad = VADHandler(
         stop_event, input_queue, spoken_prompt_queue,
         setup_kwargs=dict(
-            model=EnergyVAD(),  # per unit: host arithmetic with per-session state
+            model=vad_model,
             should_listen=should_listen,
             speculative_turns=tracker,
             thresh=args.vad.thresh,
@@ -101,15 +102,19 @@ def build_pipeline_unit(index: int, args: ParsedArguments, stop_event: threading
             smart_turn_checkpoint=args.vad.smart_turn_checkpoint,
             smart_turn_max_wait_ms=args.vad.smart_turn_max_wait_ms,
             smart_turn_incomplete_delay_ms=args.vad.smart_turn_incomplete_delay_ms,
-            device=device,  # the Smart Turn analyzer's
+            device=device,  # the Smart Turn analyzer's and the default Silero model's
         ),
     )
-    stt = get_backend("stt", args.module.stt).create_handler(
-        args.stt_config, ctx(spoken_prompt_queue, stt_output_queue))
-    notifier = TranscriptionNotifier(
-        stop_event, stt_output_queue, text_prompt_queue,
-        setup_kwargs=dict(text_output_queue=text_output_queue, should_listen=should_listen),
-    )
+    stt_spec = get_backend("stt", args.module.stt)
+    stt = stt_spec.create_handler(args.stt_config, ctx(spoken_prompt_queue, stt_output_queue))
+    handlers: list[Any] = [vad, stt]
+    # with --stt none the STT stage is the AudioInputNotifier, whose audio the service bridges to the LLM,
+    # and no transcription notifier follows it
+    if not stt_spec.capabilities.bypasses_transcription_notifier:
+        handlers.append(TranscriptionNotifier(
+            stop_event, stt_output_queue, text_prompt_queue,
+            setup_kwargs=dict(text_output_queue=text_output_queue, should_listen=should_listen),
+        ))
     llm = get_backend("llm", args.module.llm_backend).create_handler(
         args.llm_config, ctx(text_prompt_queue, lm_response_queue))
     processor = LMOutputProcessor(
@@ -118,7 +123,7 @@ def build_pipeline_unit(index: int, args: ParsedArguments, stop_event: threading
     )
     tts = get_backend("tts", args.module.tts).create_handler(
         args.tts_config, ctx(lm_processed_queue, output_queue))
-    handlers: list[Any] = [vad, stt, notifier, llm, processor, tts]
+    handlers.extend([llm, processor, tts])
     for handler in handlers:
         handler.pipeline_index = index
 
@@ -159,15 +164,45 @@ def build_pipeline(args: ParsedArguments, stop_event: threading.Event,
     returns (thread manager, server), not started."""
     check_supported(args)
     install_pipeline_log_filter()
-    pool = [build_pipeline_unit(i, args, stop_event, device) for i in range(args.module.num_pipelines)]
-    if args.module.enable_llm_proxy:
-        logger.warning("LLM proxy requested but the local LLM backend does not support it")
+    n = args.module.num_pipelines
+    vad_models = [None] * n
+    if n > 1 and args.vad.backend == "silero":
+        # N sessions, ONE Silero: every unit's 32 ms ticks batch into one call on the device
+        from s2s_tpu_torch.runtime.batcher import BatchedSileroVAD
+
+        service = GLOBAL_MODEL_CACHE.get(("silero_batched", n, str(device)),
+                                         lambda: BatchedSileroVAD(max_slots=n, device=device))
+        vad_models = [service.view(i) for i in range(n)]
+    pool = [build_pipeline_unit(i, args, stop_event, device, vad_model=vad_models[i]) for i in range(n)]
     ice = args.server.webrtc_ice_servers
     server = RealtimeServer(
         stop_event, pool, host=args.server.host, port=args.server.port,
+        llm_proxy=_build_llm_proxy(args),
         webrtc_port=args.server.webrtc_port,
         webrtc_ice_servers=[u.strip() for u in ice.split(",")] if ice else None,
     )
+    handlers: list[Any] = [h for unit in pool for h in unit.handlers]
+    if args.module.profile_dir:
+        from s2s_tpu_torch.runtime.profiler import ProfilerHandler
+
+        handlers.append(ProfilerHandler(stop_event, args.module.profile_dir, device))
     if args.module.warmup_engines:
         warmup_engines()
-    return ThreadManager([*(h for unit in pool for h in unit.handlers), server]), server
+    return ThreadManager([*handlers, server]), server
+
+
+def _build_llm_proxy(args: ParsedArguments):
+    if not args.module.enable_llm_proxy:
+        return None
+    from s2s_tpu_torch.realtime.llm_proxy import LLMProxy
+
+    spec = get_backend("llm", args.module.llm_backend)
+    if not spec.capabilities.supports_llm_proxy:
+        logger.warning("LLM proxy requested but backend %s does not support it", spec.name)
+        return None
+    return LLMProxy(
+        base_url=args.llm_config.base_url,
+        api_key=args.llm_config.api_key,
+        model_name=args.llm_config.model_name,
+        shape="responses" if args.module.llm_backend == "responses-api" else "chat",
+    )

@@ -1,11 +1,17 @@
-"""Console entry point of the port: ``s2s-tpu-torch serve`` /
+"""Console entry point of the port: ``s2s-tpu-torch {serve,talk,local}`` /
 ``python -m s2s_tpu_torch.cli serve [--device {cuda,cpu}] <s2s_tpu flags>``.
+
+- ``serve`` runs the realtime voice-agent server (bare options mean serve);
+- ``talk`` connects the audio client to a running server (live with
+  ``sounddevice``, else headless with ``--input_wav``/``--output_wav``);
+- ``local`` runs the server and a loopback client in one process: server
+  flags, then ``--``, then client flags.
 
 The flags are the JAX package's (``s2s_tpu_torch.arguments`` is its copy of
 ``s2s_tpu/arguments.py``), so ``scripts/run_soak.py``'s command lines work
-verbatim.  ``--device``
-(default ``cuda``) is stripped before they are parsed; ``cuda`` without a
-card raises, and ``cpu`` exists for the tests.
+verbatim.  ``--device`` (``serve`` and ``local``; default ``cuda``) is
+stripped before they are parsed; ``cuda`` without a card raises, and
+``cpu`` exists for the tests.
 """
 
 from __future__ import annotations
@@ -18,6 +24,8 @@ import threading
 import torch
 
 logger = logging.getLogger(__name__)
+
+COMMANDS = ("serve", "talk", "local")
 
 
 def split_device(argv: list[str]) -> tuple[str, list[str]]:
@@ -46,22 +54,32 @@ def resolve_device(name: str) -> torch.device:
     raise ValueError(f"--device must be cuda or cpu, got {name!r}")
 
 
+def _setup_logging(level: str) -> None:
+    logging.basicConfig(level=getattr(logging, level.upper(), logging.INFO),
+                        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+
+
+def parse_with_device(argv: list[str]):
+    """Parse *argv* (``--device`` included): returns (device, parsed args)."""
+    from s2s_tpu_torch.arguments import parse_arguments
+
+    device_name, rest = split_device(argv)
+    return resolve_device(device_name), parse_arguments(rest)
+
+
 def build_from_argv(argv: list[str], stop_event: threading.Event):
     """Parse *argv* (``--device`` included) and build the pipeline:
     returns (thread manager, server, parsed args), not started."""
-    from s2s_tpu_torch.arguments import parse_arguments
     from s2s_tpu_torch.builder import build_pipeline
 
-    device_name, rest = split_device(argv)
-    device = resolve_device(device_name)
-    args = parse_arguments(rest)
+    device, args = parse_with_device(argv)
     manager, server = build_pipeline(args, stop_event, device)
     return manager, server, args
 
 
 def run_serve(argv: list[str]) -> None:
     stop_event = threading.Event()
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    _setup_logging("info")
     manager, _server, args = build_from_argv(argv, stop_event)
     logging.getLogger().setLevel(getattr(logging, args.module.log_level.upper(), logging.INFO))
 
@@ -79,15 +97,60 @@ def run_serve(argv: list[str]) -> None:
         manager.stop()
 
 
+def run_talk(argv: list[str]) -> None:
+    import argparse
+    from dataclasses import fields
+
+    from s2s_tpu_torch.arguments import ClientArgs
+    from s2s_tpu_torch.client import run_realtime_audio_client
+
+    parser = argparse.ArgumentParser(prog="s2s-tpu-torch talk")
+    for f in fields(ClientArgs):
+        typ = {int: int, float: float}.get(f.type if isinstance(f.type, type) else str, str)
+        parser.add_argument(f"--{f.name}", type=typ, default=f.default)
+    ns = parser.parse_args(argv)
+    _setup_logging("info")
+    run_realtime_audio_client(ns)
+
+
+def run_local(argv: list[str]) -> None:
+    """Server + loopback client in one process: ``[--device X] <server
+    flags> -- <client flags>``."""
+    import time
+
+    from s2s_tpu_torch.builder import build_pipeline
+
+    split = argv.index("--") if "--" in argv else len(argv)
+    server_argv, client_argv = argv[:split], argv[split + 1 :]
+    device, args = parse_with_device(server_argv)
+    args.server.port = args.server.port or 0
+    _setup_logging(args.module.log_level)
+    stop_event = threading.Event()
+    manager, server = build_pipeline(args, stop_event, device)
+    manager.start()
+    try:
+        if not server.started.wait(30):
+            raise SystemExit("server failed to start")
+        run_talk(["--url", f"ws://{args.server.host}:{server.bound_port}/v1/realtime", *client_argv])
+        time.sleep(0.2)
+    finally:
+        stop_event.set()
+        manager.stop()
+
+
 def main() -> None:
     argv = sys.argv[1:]
     if not argv or argv[0] in ("-h", "--help"):
-        print("usage: s2s-tpu-torch serve [--device {cuda,cpu}] [s2s-tpu serve options]\n")
+        print(f"usage: s2s-tpu-torch {{{','.join(COMMANDS)}}} [--device {{cuda,cpu}}] [options]\n")
         print("  serve  run the realtime voice-agent server on the PyTorch/CUDA port")
+        print("  talk   connect an audio client to a running server")
+        print("  local  server + loopback client in one process (server flags -- client flags)")
         return
-    if argv[0] == "serve":
-        argv = argv[1:]
-    run_serve(argv)
+    command, rest = argv[0], argv[1:]
+    if command not in COMMANDS:
+        # bare options default to serve
+        command, rest = "serve", argv
+    {"serve": run_serve, "talk": run_talk, "local": run_local}[command](rest)
 
 
 if __name__ == "__main__":

@@ -162,3 +162,15 @@ def n_stacked(layers: Params) -> int:
             return n_stacked(leaf)
         return leaf.shape[0]
     raise ValueError("empty layer tree")
+
+
+def f32_weight(params: Params, name: str) -> torch.Tensor:
+    """``params[name]`` in f32, made once and kept in *params* under
+    ``name + "_f32"``: a head's logits are an f32 product, as the JAX
+    package's dot with f32 output, and a cast at every call would copy the
+    whole weight each decode step."""
+    key = f"{name}_f32"
+    w = params.get(key)
+    if w is None:
+        w = params[key] = params[name].float()
+    return w

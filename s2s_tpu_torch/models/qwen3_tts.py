@@ -33,6 +33,7 @@ from s2s_tpu_torch.models.common import (
     Params,
     apply_rope,
     attention,
+    f32_weight,
     layer_slice,
     linear,
     n_stacked,
@@ -373,7 +374,7 @@ def _cp_expand_frame(params: Params, cfg: Qwen3TTSConfig, talker_hidden, code0):
     emb_sum = code0_emb.float()
     residuals = []
     for i in range(n_res):
-        logits = h.float() @ params["cp_heads"][i].float()
+        logits = h.float() @ f32_weight(params, "cp_heads")[i]
         code = torch.argmax(logits, dim=-1).to(torch.int32)
         residuals.append(code)
         emb = params["cp_embeds"][i][code.long()]
@@ -392,7 +393,7 @@ def _frame_step(params: Params, cfg: Qwen3TTSConfig, state: TalkerState):
                                           state.lm_state)
     hidden = x[:, 0]
     normed = rms_norm(hidden, params["talker"]["final_norm"], cfg.lm.rms_eps)
-    logits = normed.float() @ params["codec_head"].float()
+    logits = normed.float() @ f32_weight(params, "codec_head")
     code0 = torch.argmax(logits, dim=-1).to(torch.int32)
     eos = code0 == cfg.codec_eos_id
     code0_cb = torch.clamp(code0, 0, cfg.codebook_size - 1)
@@ -458,7 +459,7 @@ def _frame_step_multi_tail(params: Params, cfg: Qwen3TTSConfig, embeds, kc, vc, 
     hidden, tk, tv = bd.tail_hidden_step(params["talker"], cfg.lm, embeds, kc, vc, pos0, tk, tv,
                                          n_act, active, i)
     normed = rms_norm(hidden, params["talker"]["final_norm"], cfg.lm.rms_eps)
-    logits = normed.float() @ params["codec_head"].float()
+    logits = normed.float() @ f32_weight(params, "codec_head")
     code0 = torch.argmax(logits, dim=-1).to(torch.int32)
     eos = code0 == cfg.codec_eos_id
     codes, emb_sum = _cp_expand_frame(params, cfg, hidden, torch.clamp(code0, 0, cfg.codebook_size - 1))

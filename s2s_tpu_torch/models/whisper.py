@@ -29,7 +29,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from s2s_tpu_torch.models.common import KVCache, Params, attention, causal_mask, layer_norm, layer_slice, linear
+from s2s_tpu_torch.models.common import (
+    KVCache, Params, attention, causal_mask, f32_weight, layer_norm, layer_slice, linear,
+)
 from s2s_tpu_torch.models.decoder_lm import normal
 
 # Whisper special tokens (multilingual vocab, v2/v3 layout).
@@ -241,7 +243,7 @@ def decode_tokens(params: Params, cfg: WhisperConfig, tokens: torch.Tensor, stat
         x = x + h
         x = x + _mlp(blk, layer_norm(x, blk["ln2_w"], blk["ln2_b"]))
     x = layer_norm(x, params["dec_ln_w"], params["dec_ln_b"])
-    logits = torch.matmul(x.float(), params["tok_emb"].float().T)
+    logits = torch.matmul(x.float(), f32_weight(params, "tok_emb").T)
     return logits, state._replace(pos=pos + t)
 
 

@@ -5,8 +5,9 @@ the checkpoint loader and the backend aliases are the JAX package's, copied;
 ``HandlerContext`` also carries the device every model of the port lives on.
 The ported backends register under the SAME names, so the JAX package's
 flags work verbatim: ``whisper`` (and its ``faster-whisper``, ``whisper-mlx``
-and ``mlx-audio-whisper`` aliases), ``parakeet-tdt``, ``local-jax`` and
-``qwen3``.
+and ``mlx-audio-whisper`` aliases), ``parakeet-tdt``, ``none`` (audio
+straight to the LLM), ``responses-api`` and ``chat-completions`` (the remote
+LLMs, host code copied from the JAX package), ``local-jax`` and ``qwen3``.
 
 With several pipeline units (``--num_pipelines``) or batched slots
 (``--llm_batched_slots``, ``--tts_batched_slots``) above 1, every unit shares
@@ -191,6 +192,48 @@ def _make_parakeet_stt(config, ctx: HandlerContext):
     )
 
 
+def _make_none_stt(config, ctx: HandlerContext):
+    from s2s_tpu_torch.llm.audio_input_notifier import AudioInputNotifier
+
+    return AudioInputNotifier(
+        ctx.stop_event, ctx.queue_in, ctx.queue_out,
+        setup_kwargs=dict(
+            text_output_queue=ctx.text_output_queue,
+            speculative_turns=ctx.speculative_turns,
+        ),
+    )
+
+
+def _make_remote_llm(shape: str):
+    def make(config, ctx: HandlerContext):
+        from s2s_tpu_torch.llm.openai_backend import ChatCompletionsHandler, ResponsesAPIHandler
+
+        cls = ResponsesAPIHandler if shape == "responses" else ChatCompletionsHandler
+        return cls(
+            ctx.stop_event, ctx.queue_in, ctx.queue_out,
+            setup_kwargs=dict(
+                cancel_scope=ctx.cancel_scope,
+                speculative_turns=ctx.speculative_turns,
+                model_name=config.model_name,
+                base_url=config.base_url,
+                api_key=config.api_key,
+                stream=config.stream,
+                stream_batch_sentences=config.stream_batch_sentences,
+                compact_history=config.compact_history,
+                enable_lang_prompt=config.enable_lang_prompt,
+                disable_thinking=config.disable_thinking,
+                reasoning_effort=config.reasoning_effort,
+                timeout_s=config.timeout_s,
+                audio_content_type=config.audio_content_type,
+                audio_max_tokens=config.audio_max_tokens,
+                audio_history_turns=config.audio_history_turns,
+                gen_kwargs=config.gen_kwargs,
+            ),
+        )
+
+    return make
+
+
 def _load_llm_tokenizer(path):
     if not path:
         return None
@@ -367,13 +410,31 @@ def unflatten_params(flat: dict) -> dict:
 
 # ── registries ───────────────────────────────────────────────────────
 
-from s2s_tpu_torch.arguments import LocalLLMArgs, ParakeetSTTArgs, Qwen3TTSArgs, WhisperSTTArgs  # noqa: E402
+from s2s_tpu_torch.arguments import (  # noqa: E402
+    LocalLLMArgs,
+    ParakeetSTTArgs,
+    Qwen3TTSArgs,
+    RemoteLLMArgs,
+    WhisperSTTArgs,
+)
 
 STT_BACKENDS: dict[str, BackendSpec] = {
     "whisper": BackendSpec("whisper", "stt", WhisperSTTArgs, _make_whisper_stt),
     "parakeet-tdt": BackendSpec("parakeet-tdt", "stt", ParakeetSTTArgs, _make_parakeet_stt),
+    "none": BackendSpec(
+        "none", "stt", WhisperSTTArgs, _make_none_stt,
+        BackendCapabilities(bypasses_transcription_notifier=True),
+    ),
 }
 LLM_BACKENDS: dict[str, BackendSpec] = {
+    "responses-api": BackendSpec(
+        "responses-api", "llm", RemoteLLMArgs, _make_remote_llm("responses"),
+        BackendCapabilities(supports_audio_input=True, supports_llm_proxy=True),
+    ),
+    "chat-completions": BackendSpec(
+        "chat-completions", "llm", RemoteLLMArgs, _make_remote_llm("chat"),
+        BackendCapabilities(supports_audio_input=True, supports_llm_proxy=True),
+    ),
     "local-jax": BackendSpec("local-jax", "llm", LocalLLMArgs, _make_local_llm),
 }
 TTS_BACKENDS: dict[str, BackendSpec] = {

@@ -1,13 +1,15 @@
-"""Cross-session micro-batched Parakeet on PyTorch (port of
+"""Cross-session micro-batched Silero and Parakeet on PyTorch (port of
 ``s2s_tpu/runtime/batcher.py``).
 
-:class:`MicroBatcher` (with its future) is the JAX package's, copied: it
-coalesces concurrent sessions' submissions arriving within a short window
-into one call.  :class:`BatchedParakeetSTT` keeps the JAX service's host
-logic (grouping by audio bucket, padding to a width bucket with inert rows,
-``n_valid == 0``) and runs each batch through
-:func:`s2s_tpu_torch.models.parakeet.transcribe_step_batch`.  The Silero
-service is not ported (ROADMAP queue 1 item 3).
+:class:`MicroBatcher` (with its future) and :class:`SileroSlotView` are the
+JAX package's, copied: the batcher coalesces concurrent sessions'
+submissions arriving within a short window into one call.
+:class:`BatchedSileroVAD` keeps one carry of ``max_slots`` rows on the
+device and advances only the rows that submitted a chunk.
+:class:`BatchedParakeetSTT` keeps the JAX service's host logic (grouping by
+audio bucket, padding to a width bucket with inert rows, ``n_valid == 0``)
+and runs each batch through
+:func:`s2s_tpu_torch.models.parakeet.transcribe_step_batch`.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from s2s_tpu_torch.models import parakeet
+from s2s_tpu_torch.models import parakeet, silero_vad
 
 logger = logging.getLogger(__name__)
 
@@ -119,6 +121,59 @@ class _Future:
         return self._value
 
 
+class BatchedSileroVAD:
+    """Shared Silero service: all sessions' 32 ms ticks in one call.
+
+    ``view(slot)`` returns a per-session facade with the ``model(x, sr)``
+    calling convention the VAD iterator expects.  The carry of every slot
+    lives on *device*; a tick copies one ``(max_slots, CHUNK + 1)`` array
+    there (each row's chunk and its active flag) and the probabilities back,
+    and the masked step advances only the active rows (``torch.where``, no
+    host read).
+    """
+
+    def __init__(self, max_slots: int = 16, params: Any | None = None, seed: int = 0,
+                 device: torch.device | str = "cpu") -> None:
+        self.device = torch.device(device)
+        self.params = params if params is not None else silero_vad.init_params(
+            silero_vad.SileroConfig(), torch.Generator(device=self.device).manual_seed(seed), self.device)
+        self.max_slots = max_slots
+        self._state = silero_vad.SileroState.create(max_slots, device=self.device)
+        self._state_lock = threading.Lock()
+        self._batcher = MicroBatcher(self._run_batch)
+
+    def masked_step(self, packed: torch.Tensor) -> torch.Tensor:
+        """Step every slot of the carry with *packed* (max_slots, CHUNK + 1)
+        on the device (a row's chunk, then 1.0 if it is active); only active
+        rows keep their new carry.  Returns every row's probability."""
+        chunk, active = packed[:, : silero_vad.CHUNK], packed[:, silero_vad.CHUNK :] > 0
+        with self._state_lock:
+            prob, new = silero_vad.step(self.params, self._state, chunk)
+            self._state = silero_vad.SileroState(
+                *(torch.where(active, n, o) for n, o in zip(new, self._state)))
+        return prob
+
+    def _run_batch(self, slots: list[int], arrays: list[np.ndarray]):
+        packed = np.zeros((self.max_slots, silero_vad.CHUNK + 1), np.float32)
+        for slot, arr in zip(slots, arrays):
+            packed[slot, : silero_vad.CHUNK] = arr
+            packed[slot, silero_vad.CHUNK] = 1.0
+        probs = self.masked_step(torch.from_numpy(packed).to(self.device)).cpu().numpy()
+        return [float(probs[slot]) for slot in slots]
+
+    def reset_slot(self, slot: int) -> None:
+        with self._state_lock:
+            for row in self._state:
+                row[slot].zero_()
+
+    def view(self, slot: int) -> "SileroSlotView":
+        assert 0 <= slot < self.max_slots
+        return SileroSlotView(self, slot)
+
+    def close(self) -> None:
+        self._batcher.close()
+
+
 class BatchedParakeetSTT:
     """Shared Parakeet service: concurrent sessions' transcribe windows in
     one batched call over one weight set."""
@@ -183,3 +238,18 @@ class BatchedParakeetSTT:
 
     def close(self) -> None:
         self._batcher.close()
+
+
+class SileroSlotView:
+    """Per-session facade compatible with the VAD iterator's model seam."""
+
+    def __init__(self, service: BatchedSileroVAD, slot: int) -> None:
+        self._service = service
+        self.slot = slot
+
+    def __call__(self, chunk: np.ndarray, sr: int = 16000) -> float:
+        x = np.asarray(chunk, np.float32).reshape(-1)
+        return self._service._batcher.submit(self.slot, x)
+
+    def reset_states(self) -> None:
+        self._service.reset_slot(self.slot)

@@ -24,11 +24,9 @@ subtlest component in the cascade).  Responsibilities:
 Model seam: the iterator's model is injected (JAX Silero in production,
 scripted fakes in tests).
 
-The port's copy of ``s2s_tpu/vad/handler.py``, trimmed of one lazy
-branch: the default Silero model when no ``model`` is given raises (Silero
-is not ported, ROADMAP queue 1 item 3); the port's builder passes
-``EnergyVAD``.  ``setup`` also takes the ``device`` the Smart Turn analyzer
-it builds runs on.
+The port's copy of ``s2s_tpu/vad/handler.py``; ``setup`` also takes the
+``device`` that the Smart Turn analyzer and the default Silero model it
+builds run on.
 """
 
 from __future__ import annotations
@@ -228,7 +226,9 @@ class VADHandler(BaseHandler):
         )
 
         if model is None:
-            raise NotImplementedError("Silero VAD is not ported yet (ROADMAP queue 1 item 3); pass a model")
+            from s2s_tpu_torch.models.silero_vad import SileroVAD
+
+            model = SileroVAD(device=device)
         self.iterator = VADIterator(
             model,
             threshold=thresh,

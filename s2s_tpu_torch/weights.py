@@ -98,3 +98,12 @@ def whisper_to_torch(tree: Any, device: torch.device | str) -> Any:
     p["conv1_w"] = conv_weight(p["conv1_w"])
     p["conv2_w"] = conv_weight(p["conv2_w"])
     return p
+
+
+def silero_params(tree: Any, device: torch.device | str) -> Any:
+    """A Silero VAD tree -> tensors on *device*, each convolution from
+    ``(3, C_in, C_out)`` to Conv1d's ``(C_out, C_in, 3)``."""
+    p = tree_to_torch(tree, device)
+    for conv in p["convs"]:
+        conv["w"] = conv_weight(conv["w"])
+    return p

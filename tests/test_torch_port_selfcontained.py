@@ -34,13 +34,13 @@ JAX = ROOT / "s2s_tpu"
 
 #: copied whole from s2s_tpu/<path>; host code that never imports jax
 VERBATIM = """
-arguments.py
-audio/pcm.py
-llm/base_handler.py llm/bpe_tokenizer.py llm/chat.py llm/compaction.py llm/output_processor.py
-llm/prompts.py llm/tool_call.py llm/utils.py
+arguments.py client.py
+audio/framing.py audio/pcm.py
+llm/audio_input_notifier.py llm/base_handler.py llm/bpe_tokenizer.py llm/chat.py llm/compaction.py
+llm/openai_backend.py llm/output_processor.py llm/prompts.py llm/tool_call.py llm/utils.py
 pipeline/control.py pipeline/events.py pipeline/log_context.py pipeline/messages.py pipeline/turns.py
-realtime/config.py realtime/handlers.py realtime/pipeline_unit.py realtime/router.py realtime/server.py
-realtime/service.py realtime/transports.py realtime/types.py realtime/webrtc.py
+realtime/config.py realtime/handlers.py realtime/llm_proxy.py realtime/pipeline_unit.py realtime/router.py
+realtime/server.py realtime/service.py realtime/transports.py realtime/types.py realtime/webrtc.py
 runtime/base_handler.py runtime/device_scheduler.py runtime/thread_manager.py
 stt/base.py stt/language_id.py stt/notifier.py stt/progressive.py stt/tokenizer.py
 tts/base.py
@@ -53,15 +53,15 @@ vad/energy.py vad/iterator.py
 SHARED = {
     "vad/handler.py": (
         ["vad/handler.py"], {}, {"VADHandler.setup"},
-        "trimmed: the default-Silero branch raises (Silero not ported); setup hands its device to the "
-        "Smart Turn analyzer it builds"),
+        "setup hands its device to the Smart Turn analyzer and the default Silero model it builds"),
     "vad/smart_turn.py": (
         ["vad/smart_turn.py"], {}, {"SmartTurnAnalyzer.__init__", "load_checkpoint"},
         "folded: the result type, the window and predict are copied; the analyzer runs the port's "
         "log-mel kernel and encoder on its device, the checkpoint loads through the port's registry"),
     "audio/resample.py": (
         ["audio/resample.py"], {}, set(),
-        "trimmed: the jitted on-device polyphase is not ported (no caller on the port's path)"),
+        "folded: the scipy path and the polyphase filter are copied; the jitted on-device polyphase is "
+        "the port's torch_resample_poly"),
     "registry.py": (
         ["registry.py"], {}, {"_make_whisper_stt", "_make_parakeet_stt", "_make_local_llm", "_make_qwen3_tts",
                               "STT_BACKENDS", "LLM_BACKENDS", "TTS_BACKENDS", "resolve_backend_alias",
@@ -92,8 +92,10 @@ SHARED = {
         "folded: the host side is copied; prefill, decode and sampling run the port's decoder"),
     "runtime/batcher.py": (
         ["runtime/batcher.py"], {},
-        {"BatchedParakeetSTT.__init__", "BatchedParakeetSTT._run_batch", "BatchedParakeetSTT.warmup"},
-        "folded: the micro-batcher is copied; the Parakeet batch runs the port's model (Silero not ported)"),
+        {"BatchedSileroVAD.__init__", "BatchedSileroVAD._run_batch", "BatchedSileroVAD.reset_slot",
+         "BatchedParakeetSTT.__init__", "BatchedParakeetSTT._run_batch", "BatchedParakeetSTT.warmup"},
+        "folded: the micro-batcher and the Silero slot view are copied; the Silero carry and its masked step, "
+        "and the Parakeet batch, run the port's models on its device"),
     "parallel/session_scheduler.py": (
         ["parallel/session_scheduler.py"], {},
         {"BatchedLMScheduler.__init__", "BatchedLMScheduler.warmup", "BatchedLMScheduler._fetch",
@@ -109,9 +111,11 @@ __init__.py audio/__init__.py llm/__init__.py models/__init__.py ops/__init__.py
 pipeline/__init__.py realtime/__init__.py runtime/__init__.py stt/__init__.py tts/__init__.py
 utils/__init__.py vad/__init__.py
 builder.py cli.py
-models/common.py models/decoder_lm.py models/parakeet.py models/qwen3_tts.py models/whisper.py
+models/common.py models/decoder_lm.py models/parakeet.py models/qwen3_tts.py models/silero_vad.py
+models/whisper.py
 ops/decode_attention.py ops/int4_matmul.py ops/int8_matmul.py ops/quant.py
 parallel/batched_decode.py
+runtime/profiler.py
 """.split()
 
 

@@ -246,7 +246,8 @@ def test_unported_options_raise():
     from s2s_tpu_torch import cli
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.build_from_argv(["--device", "cpu", *_with(TINY_FLAGS, vad_backend="silero")], threading.Event())
+        cli.build_from_argv(["--device", "cpu", *TINY_FLAGS, "--vad_enhancer_checkpoint", "deepfilter.npz"],
+                            threading.Event())
     with pytest.raises(NotImplementedError, match="not ported"):
         cli.build_from_argv(["--device", "cpu", *TINY_FLAGS, "--stt", "paraformer"], threading.Event())
 
