@@ -128,10 +128,33 @@ Phases, each printed on its own line:
    audio streamed in: Silero must tick once per 512 samples with every
    probability in [0, 1], no error event may come; the int8 and
    decode-attention kernels must launch in the phase.
+21. ``tiny_kokoro_parity`` and ``tiny_vits_parity`` (after phase 4): tiny
+   Kokoro-82M on the card against the same weights and inputs on the CPU
+   (durations equal, phase A within ``KOKORO_PHASE_A_ATOL``, two syntheses
+   within ``KOKORO_WAV_ATOL`` and a relative RMS under
+   ``KOKORO_WAV_REL_RMS``), tiny MMS/VITS likewise, its zero-initialized
+   flow projections drawn (``vits_flow_weights``; two lengths in one
+   bucket, deterministic and with noise: ``n_samples`` equal, the waveform
+   within ``VITS_WAV_ATOL``, exact zeros past each length);
+22. ``kokoro_serve`` and ``mms_serve`` (after phase 16): the 4-session
+   batched cascade of phase 6 with ``--tts kokoro`` or ``--tts
+   facebookMMS`` (``tts_flags``: the ``--tts_*`` flags it lacks dropped), full width,
+   random weights: four concurrent text turns and voice turns up to the
+   first one answered, every reply non-silent with ``response.done``, the
+   int8, decode-attention and Parakeet log-mel kernels launched in the
+   turns (the log-mel once a transcription batch); the TTFA of each
+   session, the served syntheses' RTF (audio seconds over wall seconds),
+   and one synthesis at Kokoro's token buckets 64 and 256
+   (``SYNTH_TEXTS``): wall time, peak allocation, and each part's device
+   time and kernels (Kokoro's phase A, alignment and phase B; VITS's one
+   program), and its share of non-finite samples and largest finite one
+   (with random weights Kokoro's exp head overflows: the serve's gate shows
+   only that the serve completes).
 
-Phases 3, 4, 8, 9, 10, 12, 13 and 14 run with TF32 off, so that f32 products
-are compared in full f32; the serves and phases 16-20 run with torch's
-defaults, as ``s2s_tpu_torch.cli`` does.  A ``seconds`` line gives each
+Phases 3, 4, 8, 9, 10, 12, 13, 14 and 21 run with TF32 off, so that f32
+products are compared in full f32; the serves and phases 16-20 run with
+torch's defaults, as ``s2s_tpu_torch.cli`` does (cuDNN's convolutions, so
+Kokoro's and VITS's, in TF32).  A ``seconds`` line gives each
 phase's time.  Every kernel's line and the JSON line give its
 bound: the larger of the bytes it must move over 3.35 TB/s and its
 operations over the card's peak for their type.
@@ -139,7 +162,9 @@ operations over the card's peak for their type.
 After the phases come the card's ``nvidia-smi`` name and power limit, then,
 on the line before the last, a JSON object of the kernels (``launches`` from
 their main paths' serves; the int8 and decode-attention entries also carry
-the deployment serve's as ``deployment_serve_launches``); the last line is
+the deployment, Kokoro and MMS serves' as ``deployment_serve_launches``,
+``kokoro_serve_launches`` and ``mms_serve_launches``; the log-mel's
+``launches_by_caller`` counts those two serves too); the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
 before those lines.
 """
@@ -149,6 +174,7 @@ from __future__ import annotations
 import asyncio
 import base64
 import contextlib
+import dataclasses
 import json
 import logging
 import math
@@ -287,6 +313,17 @@ DEPLOYMENT_AUDIO_S = (1.5, 1.5)  # tone, then silence
 #: config's own cap, 256, made random-init turns of 25 s of audio and 80-160
 #: s each on an H100, a quarter of the whole run)
 DEPLOYMENT_REPLY = {"max_output_tokens": 64}
+#: one synthesis measured at each of Kokoro's token buckets 64 and 256 (byte
+#: ids: no vocab without a converted checkpoint), the same texts for MMS
+SYNTH_TEXTS = {64: TEXT, 256: " ".join([TEXT] * 6)}
+#: tiny Kokoro on the card against the CPU (TF32 off): phase A as the CPU
+#: tests hold it against the JAX package; the waveform by the JAX package's
+#: bounds against its torch twin (the exp/sin head amplifies sum-order noise)
+KOKORO_PHASE_A_ATOL = 1e-5
+KOKORO_WAV_ATOL, KOKORO_WAV_REL_RMS = 2e-3, 1e-3
+#: tiny VITS on the card against the CPU: the JAX package's bound against
+#: transformers' VitsModel
+VITS_WAV_ATOL = 2e-4
 L2_BYTES = 50 << 20
 #: H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, dense bf16 FLOP/s, dense int8 OP/s
 HBM_BPS = 3.35e12
@@ -1132,15 +1169,32 @@ def serve_phase(dev: torch.device) -> dict[str, int]:
 
 
 def _reply_or_quiet(events, now) -> bool:
-    """A voice turn of the Whisper serve: its transcription, then either the
-    reply's ``response.done`` or, if no reply audio has come 20 s after the
-    transcription, the end of the attempt."""
+    """A voice turn: its transcription, then the reply's ``response.done``;
+    with no reply audio, 5 s after an empty transcript (which starts no
+    reply) or 20 s after another, the end of the attempt."""
     transcripts = _transcripts(events)
     if not transcripts:
         return False
     if "response.output_audio.delta" in _types(events):
         return "response.done" in _types(events)
-    return now - transcripts[0][0] > 20.0
+    return now - transcripts[0][0] > (20.0 if transcripts[0][1].strip() else 5.0)
+
+
+def _voice_turns(url: str, what: str, need_words: bool) -> tuple[list | None, list[dict]]:
+    """Voice turns at ``VOICE_TONES_HZ`` until one is answered with audio:
+    (that turn's events or None, one summary an attempt).  Each must be
+    transcribed, with a non-empty transcript if *need_words*."""
+    attempts = []
+    for tone in VOICE_TONES_HZ:
+        events = asyncio.run(_session(url, _audio_turn(tone), _reply_or_quiet, 300))
+        transcripts = _transcripts(events)
+        check(len(transcripts) >= 1 and (not need_words or transcripts[0][1].strip() != ""),
+              f"{what} voice turn at {tone} Hz: a {'non-empty ' if need_words else ''}transcription ({transcripts})")
+        replied = "response.output_audio.delta" in _types(events)
+        attempts.append({"tone_hz": tone, "transcript": transcripts[0][1][:80], "replied": replied})
+        if replied:
+            return events, attempts
+    return None, attempts
 
 
 def _voice_summary(events) -> dict:
@@ -1628,17 +1682,7 @@ def whisper_serve_phase(dev: torch.device, card: list[str]) -> dict[str, int]:
             predictions.clear()
             lines.records.clear()
             text = asyncio.run(_session(url, _text_turn(TEXT), _response_done, 600))
-            attempts, audio = [], None
-            for tone in VOICE_TONES_HZ:
-                events = asyncio.run(_session(url, _audio_turn(tone), _reply_or_quiet, 300))
-                transcripts = _transcripts(events)
-                check(len(transcripts) >= 1 and transcripts[0][1].strip() != "",
-                      f"whisper serve voice turn at {tone} Hz: a non-empty transcription ({transcripts})")
-                replied = "response.output_audio.delta" in _types(events)
-                attempts.append({"tone_hz": tone, "transcript": transcripts[0][1][:80], "replied": replied})
-                if replied:
-                    audio = events
-                    break
+            audio, attempts = _voice_turns(url, "whisper serve", need_words=True)
             torch.cuda.synchronize()
             launches = {name: fn.launches for name, fn in counters.items()}
             seen = dict(encodes)
@@ -2027,6 +2071,289 @@ def deployment_serve_phase(dev: torch.device, card: list[str]) -> dict[str, int]
     return launches
 
 
+def tts_flags(flags: list[str], tts: str) -> list[str]:
+    """*flags* (every flag with a value) with ``--tts`` set to *tts* and each
+    ``--tts_*`` flag that *tts*'s arguments lack dropped: the Kokoro and MMS
+    serves are ``BATCHED_FLAGS`` less the qwen3 TTS's engine flags (Kokoro
+    and VITS synthesize one utterance a call, as the JAX package does)."""
+    from s2s_tpu_torch.arguments import TTS_CONFIGS
+
+    taken = {f"--tts_{f.name}" for f in dataclasses.fields(TTS_CONFIGS[tts])}
+    out, it = [], iter(_with(flags, tts=tts))
+    for flag in it:
+        value = next(it)
+        if not flag.startswith("--tts_") or flag in taken:
+            out += [flag, value]
+    return out
+
+
+def tiny_kokoro_parity_phase(dev: torch.device) -> None:
+    """Tiny Kokoro on the card against the same code and weights on the CPU:
+    phase A at a padded token bucket (durations equal, d and t_en within
+    ``KOKORO_PHASE_A_ATOL``), then whole syntheses of two texts (equal
+    lengths, the waveform within ``KOKORO_WAV_ATOL`` and a relative RMS
+    under ``KOKORO_WAV_REL_RMS``)."""
+    from s2s_tpu_torch.models import kokoro
+    from s2s_tpu_torch.weights import tree_to_torch as to
+
+    cfg = kokoro.KokoroConfig.test_tiny()
+    cpu = kokoro.init_params(cfg, torch.Generator().manual_seed(6))
+    # the last generator conv scaled so the random waveform has speech's scale
+    # (|wav| < 1), as tests/test_torch_port_kokoro.py does
+    cpu["decoder"]["generator"]["post_w"] *= 0.1
+    rng = np.random.default_rng(6)
+    lengths = [16, 9]
+    tokens = np.zeros((2, 16), np.int64)
+    for row, n in enumerate(lengths):
+        tokens[row, :n] = rng.integers(1, cfg.n_token, n)
+    ref_s = (rng.standard_normal((2, 2 * cfg.style_dim)) * 0.5).astype(np.float32)
+    out, wavs = {}, {}
+    for label, device, params in (("cpu", "cpu", cpu), ("cuda", dev, to(cpu, dev))):
+        dur, d, t_en = kokoro.encode_text(params, cfg, torch.from_numpy(tokens).to(device), torch.tensor(lengths),
+                                          torch.from_numpy(ref_s).to(device), 1.0)
+        out[label] = (dur.cpu(), d.cpu(), t_en.cpu())
+        tts = kokoro.KokoroTTS(params=params, cfg=cfg, device=device)
+        wavs[label] = [tts.synthesize(text, voice_id=v) for text, v in (("Hello there.", 0), (TEXT, 5))]
+    check(torch.equal(out["cpu"][0], out["cuda"][0]), f"kokoro durations cuda vs cpu {out}")
+    phase_a_err = max((a - b).abs().max().item() for a, b in zip(out["cpu"][1:], out["cuda"][1:]))
+    check(phase_a_err <= KOKORO_PHASE_A_ATOL, f"kokoro d, t_en cuda vs cpu {phase_a_err}")
+    wav_err, rel_rms = 0.0, 0.0
+    for ref, got in zip(wavs["cpu"], wavs["cuda"]):
+        check(ref.shape == got.shape and ref.size > 0, f"kokoro waveform lengths {ref.shape} vs {got.shape}")
+        wav_err = max(wav_err, float(np.abs(ref - got).max()))
+        rel_rms = max(rel_rms, float(np.sqrt(np.mean((ref - got) ** 2)) / np.sqrt(np.mean(ref ** 2))))
+    check(wav_err <= KOKORO_WAV_ATOL and rel_rms < KOKORO_WAV_REL_RMS,
+          f"kokoro waveform cuda vs cpu: max |d| {wav_err}, relative RMS {rel_rms}")
+    phase("tiny_kokoro_parity", pred_dur=out["cpu"][0][0].tolist(), phase_a_max_abs_err=phase_a_err,
+          samples=[w.size for w in wavs["cpu"]], wav_max_abs_err=wav_err, wav_rel_rms=rel_rms,
+          bounds={"phase_a": KOKORO_PHASE_A_ATOL, "wav_atol": KOKORO_WAV_ATOL, "wav_rel_rms": KOKORO_WAV_REL_RMS})
+
+
+def vits_flow_weights(tree, rng: np.random.RandomState, scale: float = 0.1) -> None:
+    """Draw from *rng*, in place, the weights VITS initializes to zero: every
+    coupling's ``post_w``/``post_b`` and every duration flow's
+    ``proj_w``/``proj_b`` (the same paths in either package's tree, numpy or
+    torch).  At zero the couplings' means and the spline parameters are
+    constant, so the flows' WN and DDS stacks never reach the waveform."""
+    layers = [(c, ("post_w", "post_b")) for c in tree["flow"]]
+    layers += [(c, ("proj_w", "proj_b")) for c in tree["dp"]["conv_flows"]]
+    for layer, names in layers:
+        for name in names:
+            w = (rng.standard_normal(tuple(layer[name].shape)) * scale).astype(np.float32)
+            layer[name] = w if isinstance(layer[name], np.ndarray) else torch.from_numpy(w).to(layer[name].device)
+
+
+def tiny_vits_parity_phase(dev: torch.device) -> None:
+    """Tiny MMS/VITS on the card against the same code and weights on the
+    CPU (its zero-initialized flow projections drawn by
+    ``vits_flow_weights``): two lengths in one bucket, deterministic and
+    with the noise drawn as the JAX wrapper draws it; ``n_samples`` equal,
+    the waveform within ``VITS_WAV_ATOL``, exact zeros past each row's
+    length on the card."""
+    from s2s_tpu_torch.models import vits
+    from s2s_tpu_torch.weights import tree_to_torch as to
+
+    cfg = vits.VitsConfig.test_tiny()
+    cpu = vits.init_params(cfg, torch.Generator().manual_seed(7))
+    rng = np.random.RandomState(7)
+    vits_flow_weights(cpu, rng)
+    lengths = [24, 9]
+    tokens = np.zeros((2, cfg.max_tokens), np.int64)
+    for row, n in enumerate(lengths):
+        tokens[row, :n] = rng.randint(1, cfg.vocab_size, n)
+    noise = (rng.randn(2, cfg.max_tokens, 2).astype(np.float32) * 0.8,
+             rng.randn(2, cfg.max_frames, cfg.flow_size).astype(np.float32) * 0.667)
+    err, peak, zeros, samples = 0.0, 0.0, True, []
+    for noisy in (False, True):
+        out = {}
+        for label, device, params in (("cpu", "cpu", cpu), ("cuda", dev, to(cpu, dev))):
+            extra = [torch.from_numpy(n).to(device) for n in noise] if noisy else []
+            wav, n = vits.synthesize(params, cfg, torch.from_numpy(tokens).to(device), torch.tensor(lengths), 1.0,
+                                     *extra)
+            out[label] = (wav.cpu(), n.cpu())
+        check(torch.equal(out["cpu"][1], out["cuda"][1]), f"vits n_samples cuda vs cpu {out['cpu'][1]} "
+              f"{out['cuda'][1]}")
+        err = max(err, (out["cpu"][0] - out["cuda"][0]).abs().max().item())
+        peak = max(peak, out["cpu"][0].abs().max().item())
+        zeros = zeros and all(not out["cuda"][0][r, int(n):].any() for r, n in enumerate(out["cuda"][1]))
+        samples.append(out["cpu"][1].tolist())
+    check(err <= VITS_WAV_ATOL and zeros, f"vits waveform cuda vs cpu max |d| {err}, zeros past each length {zeros}")
+    phase("tiny_vits_parity", n_samples=samples, wav_max_abs_err=err, bound=VITS_WAV_ATOL,
+          zeros_past_each_length=zeros, wav_max_abs=peak)
+
+
+def _device_activity(fn):
+    """(result, device busy ms, kernels, copies and memsets) of ``fn()`` under
+    ``torch.profiler`` (device activity only)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        result = fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.profiler.kineto_results.events() if e.device_type() == torch.autograd.DeviceType.CUDA]
+    copies = sum(1 for e in device if e.name().startswith(("Memcpy", "Memset")))
+    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns()) for e in device)
+    busy_ns, end = 0, spans[0][0] if spans else 0
+    for start, stop in spans:
+        busy_ns += max(0, stop - max(start, end))
+        end = max(end, stop)
+    return result, busy_ns / 1e6, len(device) - copies, copies
+
+
+def _synthesis_profile(model) -> list[dict]:
+    """One synthesis of each of ``SYNTH_TEXTS`` on the served model, after a
+    warm one: its wall time and peak allocation above what was resident
+    (every served model), then, under ``torch.profiler``, the device busy
+    time and kernels of each part (Kokoro: phase A, the alignment, phase B;
+    MMS/VITS: its one program)."""
+    from s2s_tpu_torch.models import kokoro, vits
+
+    rows = []
+    for bucket, text in SYNTH_TEXTS.items():
+        model.synthesize(text)  # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        model.synthesize(text)  # returns host audio: synchronized
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        parts = {}
+        with torch.inference_mode():
+            if isinstance(model, kokoro.KokoroTTS):
+                cfg = model.cfg
+                ids = model._encode(text)[: cfg.max_tokens] or [1]
+                check(model.token_bucket(len(ids)) == bucket, f"{len(ids)} ids in token bucket {bucket}")
+                tokens = torch.zeros((1, bucket), dtype=torch.long)
+                tokens[0, : len(ids)] = torch.tensor(ids)
+                ref_s = model._ref_s(0, len(ids))
+                (dur, d, t_en), *parts["phase_a"] = _device_activity(lambda: kokoro.encode_text(
+                    model.params, cfg, tokens.to(model.device), torch.tensor([len(ids)]), ref_s, 1.0))
+                total = int(torch.sum(dur[0]))
+                frames = model.frame_bucket(total)
+                (en, asr), *parts["align"] = _device_activity(
+                    lambda: (kokoro.align(d, dur, frames), kokoro.align(t_en, dur, frames)))
+                audio, *parts["phase_b"] = _device_activity(lambda: kokoro.vocode(model.params, cfg, en, asr, ref_s))
+                samples = min(total, frames) * cfg.samples_per_frame
+                shape = {"tokens": len(ids), "token_bucket": bucket, "frames": total, "frame_bucket": frames}
+            else:
+                cfg = model.cfg
+                ids = model._encode(text, model.tokenizer)[: cfg.max_tokens]
+                tokens = torch.zeros((1, cfg.max_tokens), dtype=torch.long)
+                tokens[0, : len(ids)] = torch.tensor(ids)
+                (audio, n), *parts["program"] = _device_activity(lambda: vits.synthesize(
+                    model.params, cfg, tokens.to(model.device), torch.tensor([len(ids)]), 1.0))
+                samples = int(n[0])
+                shape = {"tokens": len(ids), "token_bucket": cfg.max_tokens, "frame_bucket": cfg.max_frames}
+        check(bool(torch.isfinite(audio).any()), "the synthesis wrote samples")
+        audio = audio.reshape(-1)[:samples]
+        finite = torch.isfinite(audio)
+        rows.append({**shape, "audio_seconds": samples / cfg.sample_rate, "wall_ms": wall * 1e3,
+                     "nonfinite_share": 1.0 - finite.float().mean().item(),
+                     "max_abs_finite": audio[finite].abs().max().item() if finite.any() else None,
+                     "parts": {k: {"device_ms": v[0], "kernels": v[1], "copies": v[2]} for k, v in parts.items()},
+                     "kernels": sum(v[1] for v in parts.values()), "peak_bytes_above_resident": peak,
+                     "resident_bytes": base})
+    return rows
+
+
+def tts_serve_phase(dev: torch.device, card: list[str], tts: str) -> dict[str, int]:
+    """The 4-session batched cascade with ``--tts kokoro`` or ``--tts
+    facebookMMS`` (``tts_flags(BATCHED_FLAGS, tts)``; full width, random
+    weights from seed 0, torch's defaults): build (the LM and Parakeet
+    engines warmed), every count set to 0, four concurrent text turns (one a
+    session), then voice turns in one session (``VOICE_TONES_HZ`` until one
+    is answered); every reply must be non-silent PCM with ``response.done``,
+    and the int8, decode-attention and Parakeet log-mel kernels must have
+    launched in the turns.  Each served synthesis is timed (wall clock; the
+    call returns host audio, so it has synchronized), then one synthesis a
+    text of ``SYNTH_TEXTS`` is profiled on the served model.  Returns the
+    kernels' launches over the turns."""
+    from s2s_tpu_torch import builder, cli
+    from s2s_tpu_torch.models import kokoro, vits
+    from s2s_tpu_torch.registry import GLOBAL_MODEL_CACHE
+
+    flags = tts_flags(BATCHED_FLAGS, tts)
+    cls = kokoro.KokoroTTS if tts == "kokoro" else vits.VitsTTS
+    counters = _launch_counters()
+    synths: list[tuple[float, float]] = []
+    real_synthesize, untimed = cls.synthesize, builder.warmup_engines
+    warm = {}
+
+    def timed_synthesize(self, *args, **kwargs):
+        t = time.perf_counter()
+        audio = real_synthesize(self, *args, **kwargs)
+        synths.append((time.perf_counter() - t, audio.size / self.cfg.sample_rate))
+        return audio
+
+    def timed_warmup():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        untimed()
+        warm["s"] = time.perf_counter() - t
+
+    cls.synthesize = timed_synthesize
+    builder.warmup_engines = timed_warmup
+    stop = threading.Event()
+    try:
+        t0 = time.perf_counter()
+        try:
+            manager, server, _ = cli.build_from_argv(["--device", "cuda", *flags], stop)
+        finally:
+            builder.warmup_engines = untimed
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0 - warm.get("s", 0.0)
+        manager.start()
+        try:
+            check(server.started.wait(60), "server started")
+            url = f"ws://127.0.0.1:{server.bound_port}/v1/realtime"
+            models = {id(h.model): h.model for h in manager.handlers if isinstance(getattr(h, "model", None), cls)}
+            check(len(models) == 1, f"the {SESSIONS} units share one {cls.__name__}: {len(models)}")
+            with counted_transcriptions() as stt:
+                for fn in counters.values():  # count the measured turns only
+                    fn.launches = 0
+                synths.clear()
+                t0 = time.perf_counter()
+                rounds = asyncio.run(_concurrent_text_turns(url, SESSIONS))
+                round_s = time.perf_counter() - t0
+                text_synths = list(synths)
+                audio, attempts = _voice_turns(url, f"{tts} serve", need_words=False)
+                torch.cuda.synchronize()
+                launches = {name: fn.launches for name, fn in counters.items()}
+            served = synths[:]
+            profile_rows = _synthesis_profile(next(iter(models.values())))
+        finally:
+            stop.set()
+            manager.stop()
+            GLOBAL_MODEL_CACHE.clear()
+    finally:
+        cls.synthesize = real_synthesize
+        builder.warmup_engines = untimed
+
+    check("s" in warm, "--warmup_engines warmed the batched engines")
+    sessions = []
+    for i, events in enumerate(rounds):
+        pcm, done = _reply(events, f"{tts} concurrent text turn {i}")
+        sessions.append({"ttfa_s": _first_audio_s(events), "turn_s": done, "audio_seconds": pcm.size / 24_000})
+    check(audio is not None, f"{tts} serve: a voice turn answered with audio: {attempts}")
+    voice = _voice_summary(audio)
+    for name in ("int8_matmul", "decode_attention"):
+        check(launches[name] > 0, f"{name} launched in the {tts} serve's turns: {launches}")
+    check_parakeet_frontend(launches["parakeet_log_mel"], stt["batches"], f"{tts} serve")
+    wall, seconds = sum(w for w, _ in served), sum(a for _, a in served)
+    phase(f"{'kokoro' if tts == 'kokoro' else 'mms'}_serve", card=card, flags=flags[flags.index("--tts"):][:2],
+          sessions=SESSIONS, build_s=build_s, warmup_s=warm["s"], round_s=round_s, text_turns=sessions,
+          voice_attempts=attempts, voice_turn=voice, transcription_batches=stt["batches"],
+          syntheses=len(served), synthesis_audio_s=seconds, synthesis_wall_s=wall,
+          synthesis_rtf=seconds / wall if wall else 0.0,
+          text_round_synthesis_wall_s=[w for w, _ in text_synths],
+          launches={k: launches[k] for k in ("int8_matmul", "decode_attention", "parakeet_log_mel")},
+          per_synthesis=profile_rows, tf32={"matmul": torch.backends.cuda.matmul.allow_tf32,
+                                            "cudnn": torch.backends.cudnn.allow_tf32})
+    return launches
+
+
 def _first_audio_s(events) -> float:
     return next(t for t, e in events if e["type"] == "response.output_audio.delta")
 
@@ -2073,9 +2400,15 @@ def main() -> int:
     attn = run("decode_attention", attention_phase, dev, tf32=False)
     run("tiny_parity", tiny_parity_phase, dev, tf32=False)
     run("tiny_batched_parity", tiny_batched_parity_phase, dev, tf32=False)
+    run("tiny_kokoro_parity", tiny_kokoro_parity_phase, dev, tf32=False)
+    run("tiny_vits_parity", tiny_vits_parity_phase, dev, tf32=False)
     # under torch's defaults, as the serve runs it; before any other profiler session in this process (a
     # profiler started after the traced round's dropped some or all of a tick's device events on an H100)
     run("silero", silero_phase, dev, smi)
+    # the Kokoro and MMS cascades, under torch's defaults as the CLI serves them; their per-synthesis
+    # profiles come before the traced round's profiler session, as Silero's do
+    kokoro = run("kokoro_serve", tts_serve_phase, dev, smi, "kokoro")
+    mms = run("mms_serve", tts_serve_phase, dev, smi, "facebookMMS")
     single = run("serve", serve_phase, dev)
     launches = run("batched_serve", batched_serve_phase, dev, smi)
     dyn = run("int8_matmul_dyn", int8_dyn_phase, dev, str(library), tf32=False)
@@ -2095,15 +2428,20 @@ def main() -> int:
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     mel_launches = {"whisper_serve": whisper_launches["log_mel"], "serve": single["parakeet_log_mel"],
-                    "batched_serve": launches["parakeet_log_mel"]}
+                    "batched_serve": launches["parakeet_log_mel"], "kokoro_serve": kokoro["parakeet_log_mel"],
+                    "mms_serve": mms["parakeet_log_mel"]}
+    tts_serves = {name: {"kokoro_serve_launches": kokoro[name], "mms_serve_launches": mms[name]}
+                  for name in ("int8_matmul", "decode_attention")}
     print(smi[0])
     print(json.dumps({"kernels": [
         {"name": "int8_matmul", "route": "cuda", "source": "s2s_tpu_torch/csrc/int8_matmul.cu",
          "replaces": "s2s_tpu/ops/int8_matmul.py:39", "launches": launches["int8_matmul"],
-         "deployment_serve_launches": deployment["int8_matmul"], **{k: int8[k] for k in keys}},
+         "deployment_serve_launches": deployment["int8_matmul"], **tts_serves["int8_matmul"],
+         **{k: int8[k] for k in keys}},
         {"name": "decode_attention", "route": "cuda", "source": "s2s_tpu_torch/csrc/decode_attention.cu",
          "replaces": "s2s_tpu/ops/decode_attention.py:44", "launches": launches["decode_attention"],
-         "deployment_serve_launches": deployment["decode_attention"], **{k: attn[k] for k in keys}},
+         "deployment_serve_launches": deployment["decode_attention"], **tts_serves["decode_attention"],
+         **{k: attn[k] for k in keys}},
         {"name": "int8_matmul_dyn", "route": "cuda", "source": "s2s_tpu_torch/csrc/int8_matmul_dyn.cu",
          "replaces": "s2s_tpu/ops/int8_matmul.py:80", "launches": quant_launches["int8_matmul_dyn"],
          **{k: dyn[k] for k in keys}},

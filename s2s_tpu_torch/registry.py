@@ -7,7 +7,9 @@ The ported backends register under the SAME names, so the JAX package's
 flags work verbatim: ``whisper`` (and its ``faster-whisper``, ``whisper-mlx``
 and ``mlx-audio-whisper`` aliases), ``parakeet-tdt``, ``none`` (audio
 straight to the LLM), ``responses-api`` and ``chat-completions`` (the remote
-LLMs, host code copied from the JAX package), ``local-jax`` and ``qwen3``.
+LLMs, host code copied from the JAX package), ``local-jax``, and the TTS
+families ``qwen3``, ``kokoro`` (Kokoro-82M) and ``facebookMMS`` (MMS/VITS).
+The rest raise while the flags are parsed (:func:`get_backend`).
 
 With several pipeline units (``--num_pipelines``) or batched slots
 (``--llm_batched_slots``, ``--tts_batched_slots``) above 1, every unit shares
@@ -367,6 +369,86 @@ def _make_qwen3_tts(config, ctx: HandlerContext):
     )
 
 
+def _make_kokoro_tts(config, ctx: HandlerContext):
+    from s2s_tpu_torch.models.kokoro import KokoroTTS
+    from s2s_tpu_torch.tts.kokoro_handler import KokoroTTSHandler
+
+    def build():
+        vocab = _load_vocab_sidecar(config.checkpoint)
+        g2p = None
+        if vocab is not None and not getattr(config, "phoneme_input", False):
+            from s2s_tpu_torch.tts.g2p import resolve_phonemizer
+
+            g2p = resolve_phonemizer(getattr(config, "lang", "en-us"))
+        tree = _load_checkpoint(config.checkpoint)
+        model = KokoroTTS(params=weights.kokoro_params(tree, ctx.device) if tree is not None else None,
+                          vocab=vocab, g2p=g2p, device=ctx.device)
+        if config.voicepack:
+            pack = _load_checkpoint(config.voicepack)
+            model.add_voice(config.voice or "default", pack["pack"])
+        return model
+
+    model = ctx.model_cache.get(
+        ("kokoro", config.checkpoint, config.voicepack,
+         getattr(config, "lang", "en-us"), getattr(config, "phoneme_input", False), str(ctx.device)),
+        build,
+    )
+    return KokoroTTSHandler(
+        ctx.stop_event, ctx.queue_in, ctx.queue_out,
+        setup_kwargs=dict(
+            cancel_scope=ctx.cancel_scope,
+            speculative_turns=ctx.speculative_turns,
+            device_scheduler=ctx.device_scheduler,
+            should_listen=ctx.should_listen,
+            model=model,
+            voice=config.voice,
+            speed=config.speed,
+            blocksize=config.blocksize,
+            speculative_synthesis=getattr(config, "speculative_synthesis", True),
+        ),
+    )
+
+
+def _make_mms_tts(config, ctx: HandlerContext):
+    from s2s_tpu_torch.models.vits import VitsTTS
+    from s2s_tpu_torch.tts.mms_handler import MMSTTSHandler
+
+    def build():
+        tree = _load_checkpoint(config.checkpoint)
+        return VitsTTS(params=weights.vits_params(tree, ctx.device) if tree is not None else None,
+                       vocab=_load_vocab_sidecar(config.checkpoint), device=ctx.device)
+
+    model = ctx.model_cache.get(("mms_vits", config.checkpoint, str(ctx.device)), build)
+    return MMSTTSHandler(
+        ctx.stop_event, ctx.queue_in, ctx.queue_out,
+        setup_kwargs=dict(
+            cancel_scope=ctx.cancel_scope,
+            speculative_turns=ctx.speculative_turns,
+            device_scheduler=ctx.device_scheduler,
+            should_listen=ctx.should_listen,
+            model=model,
+            language=config.language,
+            speed=config.speed,
+            blocksize=config.blocksize,
+            speculative_synthesis=getattr(config, "speculative_synthesis", True),
+        ),
+    )
+
+
+def _load_vocab_sidecar(path: str | None):
+    """MMS per-language char vocab written by the converter next to the npz."""
+    if not path:
+        return None
+    import json
+    import os
+
+    sidecar = path + ".vocab.json"
+    if os.path.exists(sidecar):
+        with open(sidecar) as f:
+            return json.load(f)
+    return None
+
+
 def _load_checkpoint(path: str | None):
     """Load converted weights from an .npz/.msgpack file (None -> random init)."""
     if not path:
@@ -411,7 +493,9 @@ def unflatten_params(flat: dict) -> dict:
 # ── registries ───────────────────────────────────────────────────────
 
 from s2s_tpu_torch.arguments import (  # noqa: E402
+    KokoroTTSArgs,
     LocalLLMArgs,
+    MMSTTSArgs,
     ParakeetSTTArgs,
     Qwen3TTSArgs,
     RemoteLLMArgs,
@@ -439,6 +523,8 @@ LLM_BACKENDS: dict[str, BackendSpec] = {
 }
 TTS_BACKENDS: dict[str, BackendSpec] = {
     "qwen3": BackendSpec("qwen3", "tts", Qwen3TTSArgs, _make_qwen3_tts),
+    "kokoro": BackendSpec("kokoro", "tts", KokoroTTSArgs, _make_kokoro_tts),
+    "facebookMMS": BackendSpec("facebookMMS", "tts", MMSTTSArgs, _make_mms_tts),
 }
 
 
@@ -466,8 +552,9 @@ def resolve_backend_alias(kind: str, name: str) -> str:
 
 
 def get_backend(kind: str, name: str) -> BackendSpec:
-    """The spec of a ported backend; an unported one raises and names the
-    ROADMAP queue (``s2s_tpu_torch.arguments`` calls this while it parses)."""
+    """The spec of a ported backend; an unported one (``paraformer``,
+    ``local-vlm``, ``pocket``, ``chatTTS``) raises and names the ROADMAP
+    queue (``s2s_tpu_torch.arguments`` calls this while it parses)."""
     name = resolve_backend_alias(kind, name)
     registry = {"stt": STT_BACKENDS, "llm": LLM_BACKENDS, "tts": TTS_BACKENDS}[kind]
     if name not in registry:

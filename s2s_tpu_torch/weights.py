@@ -5,20 +5,24 @@ arrays (or anything ``np.asarray`` reads, bf16 included), the JAX
 package's quantized weights (``QuantWeight``, ``DynQuantWeight``,
 ``Quant4Weight``), or an ``unflatten_params`` tree loaded from a converted
 ``.npz`` checkpoint.  Returns the same tree as torch tensors on a
-given device, with the two layout changes the port makes:
+given device, with the layout changes the port makes:
 
 - convolution weights stored by the JAX package as NTC/TIO ``(k, in/g, out)``
   become PyTorch's Conv1d ``(out, in/g, k)``;
-- transposed-convolution weights, stored pre-flipped as ``(k, in, out)``,
-  become PyTorch's ConvTranspose1d ``(in, out, k)``.
+- transposed-convolution weights, stored pre-flipped as ``(k, in/g, out)``,
+  become PyTorch's ConvTranspose1d ``(in, out/g, k)``;
+- a BiLSTM's ``(in, 4H)`` matrices in gate order i, f, g, o with one folded
+  bias per direction become a ``torch.nn.LSTM`` (the bias as ``bias_ih``,
+  ``bias_hh`` zero).
 
 Those are the inverses of the transforms in the JAX package's checkpoint
 converters (``convert_c2w_state_dict``, parakeet ``convert_state_dict``,
-whisper ``convert_hf_state_dict``).
+whisper and vits ``convert_hf_state_dict``, kokoro ``convert_state_dict``).
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Any
 
 import numpy as np
@@ -41,7 +45,10 @@ def to_tensor(value: Any, device: torch.device | str) -> torch.Tensor:
 def tree_to_torch(tree: Any, device: torch.device | str) -> Any:
     """Every array or tensor leaf -> tensor on *device*; a quantized weight
     (the JAX package's or the port's, matched by type name) -> the port's
-    type of that name, field by field."""
+    type of that name, field by field; a module (the port's BiLSTMs) -> a
+    copy on *device*."""
+    if isinstance(tree, torch.nn.Module):
+        return copy.deepcopy(tree).to(device)
     cls = _QUANT_BY_NAME.get(type(tree).__name__)
     if cls is not None:
         return cls(*(to_tensor(part, device) for part in tree))
@@ -57,9 +64,31 @@ def conv_weight(w: torch.Tensor) -> torch.Tensor:
     return w.transpose(-1, -3).contiguous()
 
 
-def trans_conv_weight(w: torch.Tensor) -> torch.Tensor:
-    """Pre-flipped (k, in, out) -> ConvTranspose1d (in, out, k)."""
-    return w.flip(0).permute(1, 2, 0).contiguous()
+def trans_conv_weight(w: torch.Tensor, groups: int = 1) -> torch.Tensor:
+    """Pre-flipped (k, in/g, out) -> ConvTranspose1d (in, out/g, k): group j
+    maps inputs j*in/g.. to outputs j*out/g.. (a depthwise (k, 1, C) weight
+    -> (C, 1, k))."""
+    k, in_g, out = w.shape
+    w = w.flip(0).reshape(k, in_g, groups, out // groups)
+    return w.permute(2, 1, 3, 0).reshape(groups * in_g, out // groups, k).contiguous()
+
+
+def lstm_module(p: Any, device: torch.device | str) -> torch.nn.LSTM:
+    """A BiLSTM tree ``{w_ih_f, w_hh_f, b_f, w_ih_b, w_hh_b, b_b}`` ((in, 4H),
+    (H, 4H), (4H,) each direction) -> a bidirectional batch-first
+    ``torch.nn.LSTM`` on *device* holding the same weights, no gradients."""
+    w_ih = to_tensor(p["w_ih_f"], device).float()
+    lstm = torch.nn.LSTM(w_ih.shape[0], w_ih.shape[1] // 4, batch_first=True, bidirectional=True,
+                         device="meta").to_empty(device=device)
+    with torch.no_grad():
+        for suffix, d in (("", "f"), ("_reverse", "b")):
+            getattr(lstm, f"weight_ih_l0{suffix}").copy_(to_tensor(p[f"w_ih_{d}"], device).T)
+            getattr(lstm, f"weight_hh_l0{suffix}").copy_(to_tensor(p[f"w_hh_{d}"], device).T)
+            getattr(lstm, f"bias_ih_l0{suffix}").copy_(to_tensor(p[f"b_{d}"], device))
+            getattr(lstm, f"bias_hh_l0{suffix}").zero_()
+    lstm.requires_grad_(False)
+    lstm.flatten_parameters()
+    return lstm
 
 
 def parakeet_params(tree: Any, device: torch.device | str) -> Any:
@@ -106,4 +135,72 @@ def silero_params(tree: Any, device: torch.device | str) -> Any:
     p = tree_to_torch(tree, device)
     for conv in p["convs"]:
         conv["w"] = conv_weight(conv["w"])
+    return p
+
+
+def kokoro_params(tree: Any, device: torch.device | str) -> Any:
+    """A Kokoro tree (``s2s_tpu/models/kokoro.py`` layout: from its
+    ``init_params`` or ``convert_state_dict``) -> the port's: tensors on
+    *device*, convolutions in Conv1d layout, the transposed convolutions
+    (the generator's upsamples and the depthwise pools) in ConvTranspose1d
+    layout, each BiLSTM a ``torch.nn.LSTM``."""
+    p = tree_to_torch(tree, device)
+
+    def res_blk(blk):
+        blk["conv1_w"] = conv_weight(blk["conv1_w"])
+        blk["conv2_w"] = conv_weight(blk["conv2_w"])
+        if "pool_w" in blk:
+            blk["pool_w"] = trans_conv_weight(blk["pool_w"], groups=blk["pool_w"].shape[-1])
+
+    def snake_blk(blk):
+        blk["c1_w"] = [conv_weight(w) for w in blk["c1_w"]]
+        blk["c2_w"] = [conv_weight(w) for w in blk["c2_w"]]
+
+    pr = p["predictor"]
+    for layer in pr["text_encoder"]["layers"]:
+        layer["lstm"] = lstm_module(layer["lstm"], device)
+    pr["lstm"] = lstm_module(pr["lstm"], device)
+    pr["shared"] = lstm_module(pr["shared"], device)
+    for blk in pr["F0"] + pr["N"]:
+        res_blk(blk)
+    te = p["text_encoder"]
+    for c in te["cnn"]:
+        c["conv_w"] = conv_weight(c["conv_w"])
+    te["lstm"] = lstm_module(te["lstm"], device)
+    dec = p["decoder"]
+    for blk in [dec["encode"], *dec["decode"]]:
+        res_blk(blk)
+    dec["f0_conv_w"] = conv_weight(dec["f0_conv_w"])
+    dec["n_conv_w"] = conv_weight(dec["n_conv_w"])
+    g = dec["generator"]
+    g["ups_w"] = [trans_conv_weight(w) for w in g["ups_w"]]
+    g["noise_conv_w"] = [conv_weight(w) for w in g["noise_conv_w"]]
+    for blk in g["res"] + g["noise_res"]:
+        snake_blk(blk)
+    g["post_w"] = conv_weight(g["post_w"])
+    return p
+
+
+def vits_params(tree: Any, device: torch.device | str) -> Any:
+    """An MMS/VITS tree (``s2s_tpu/models/vits.py`` layout: from its
+    ``init_params`` or ``convert_hf_state_dict``) -> the port's: tensors on
+    *device*, every convolution in Conv1d layout (the depthwise ``(k, 1, C)``
+    ones -> ``(C, 1, k)``), the HiFi-GAN upsamples in ConvTranspose1d layout."""
+    p = tree_to_torch(tree, device)
+    for layer in p["text_encoder"]["layers"]:
+        layer["ffn_w1"] = conv_weight(layer["ffn_w1"])
+        layer["ffn_w2"] = conv_weight(layer["ffn_w2"])
+    dp = p["dp"]
+    for dds in [dp["dds"], *(cf["dds"] for cf in dp["conv_flows"])]:
+        for layer in dds:
+            layer["dw_w"] = conv_weight(layer["dw_w"])
+    for coupling in p["flow"]:
+        coupling["wn"]["in_w"] = [conv_weight(w) for w in coupling["wn"]["in_w"]]
+    dec = p["dec"]
+    dec["pre_w"] = conv_weight(dec["pre_w"])
+    dec["ups_w"] = [trans_conv_weight(w) for w in dec["ups_w"]]
+    for blk in dec["res"]:
+        blk["c1_w"] = [conv_weight(w) for w in blk["c1_w"]]
+        blk["c2_w"] = [conv_weight(w) for w in blk["c2_w"]]
+    dec["post_w"] = conv_weight(dec["post_w"])
     return p

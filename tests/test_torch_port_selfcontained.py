@@ -7,9 +7,10 @@ package's host code have not drifted from their originals.
   under it) or ``jax``, at module level or inside a function, and no
   ``importlib``/``__import__`` call with such a name.
 - In a subprocess where importing either name fails, every port module
-  imports and the tiny two-session CPU serve of
+  imports, the tiny two-session CPU serve of
   ``tests/test_torch_port_serve.py`` builds and answers two concurrent text
-  turns with audio and ``response.done``.
+  turns with audio and ``response.done``, and the same serve builds with
+  ``--tts kokoro`` and with ``--tts facebookMMS`` (full width, random init).
 - The drift guard: a verbatim copy equals its JAX module's text after the
   package-name substitution ``s2s_tpu.`` -> ``s2s_tpu_torch.``; in a trimmed
   or folded module, every definition it shares with its JAX module(s) equals
@@ -43,7 +44,7 @@ realtime/config.py realtime/handlers.py realtime/llm_proxy.py realtime/pipeline_
 realtime/server.py realtime/service.py realtime/transports.py realtime/types.py realtime/webrtc.py
 runtime/base_handler.py runtime/device_scheduler.py runtime/thread_manager.py
 stt/base.py stt/language_id.py stt/notifier.py stt/progressive.py stt/tokenizer.py
-tts/base.py
+tts/base.py tts/g2p.py tts/kokoro_handler.py tts/mms_handler.py
 utils/common.py utils/sentences.py
 vad/energy.py vad/iterator.py
 """.split()
@@ -64,8 +65,8 @@ SHARED = {
         "the port's torch_resample_poly"),
     "registry.py": (
         ["registry.py"], {}, {"_make_whisper_stt", "_make_parakeet_stt", "_make_local_llm", "_make_qwen3_tts",
-                              "STT_BACKENDS", "LLM_BACKENDS", "TTS_BACKENDS", "resolve_backend_alias",
-                              "get_backend"},
+                              "_make_kokoro_tts", "_make_mms_tts", "STT_BACKENDS", "LLM_BACKENDS", "TTS_BACKENDS",
+                              "resolve_backend_alias", "get_backend"},
         "folded: the registry types, loaders and aliases are copied; the factories and the registries "
         "are the port's (its devices, its models, unported backends raise)"),
     "ops/mel.py": (
@@ -111,8 +112,8 @@ __init__.py audio/__init__.py llm/__init__.py models/__init__.py ops/__init__.py
 pipeline/__init__.py realtime/__init__.py runtime/__init__.py stt/__init__.py tts/__init__.py
 utils/__init__.py vad/__init__.py
 builder.py cli.py
-models/common.py models/decoder_lm.py models/parakeet.py models/qwen3_tts.py models/silero_vad.py
-models/whisper.py
+models/common.py models/decoder_lm.py models/kokoro.py models/parakeet.py models/qwen3_tts.py
+models/silero_vad.py models/vits.py models/whisper.py
 ops/decode_attention.py ops/int4_matmul.py ops/int8_matmul.py ops/quant.py
 parallel/batched_decode.py
 runtime/profiler.py
@@ -201,6 +202,12 @@ for events in results:
     types = [e["type"] for e in events]
     assert "response.output_audio.delta" in types, types
     assert events[-1]["type"] == "response.done" and events[-1]["response"]["status"] == "completed", types
+for tts, model in (("kokoro", "KokoroTTS"), ("facebookMMS", "VitsTTS")):
+    manager, _, _ = cli.build_from_argv(["--device", "cpu", *serve.tts_flags(serve.BATCHED_FLAGS, tts)],
+                                        threading.Event())
+    built = [type(h.model) for h in manager.handlers if type(getattr(h, "model", None)).__name__ == model]
+    assert len(built) == 2 and built[0].__module__.startswith("s2s_tpu_torch.models."), built
+    GLOBAL_MODEL_CACHE.clear()
 leaked = sorted(k for k, v in sys.modules.items()
                 if v is not None and (k in ("jax", "s2s_tpu") or k.startswith(("jax.", "s2s_tpu."))))
 assert not leaked, leaked

@@ -8,6 +8,10 @@
 - A tiny serve with Whisper tiny and Smart Turn on answers a WebSocket voice
   turn: a transcription, Smart Turn predictions with none failed, and (for a
   non-empty random-init transcript) a spoken reply with ``response.done``.
+- Tiny batched serves with ``--tts kokoro`` and ``--tts facebookMMS`` (the
+  models at ``test_tiny()``, placed in the model cache under the factories'
+  keys) answer two concurrent text turns each with audio deltas and
+  ``response.done``.
 - Every ``s2s_tpu_torch`` module imports, and both tiny pipelines build, in a
   process where importing ``jax`` or the JAX package ``s2s_tpu`` fails.
 - ``--model_parallel`` above 1 raises at build time instead of degrading.
@@ -25,6 +29,8 @@ import sys
 import threading
 
 import pytest
+
+from chip_smoke import tts_flags  # the serves' flags with another TTS, as the card's serves take them
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -121,6 +127,69 @@ def test_tiny_batched_cpu_serve_answers_two_concurrent_text_turns():
         deltas = [e for e in events if e["type"] == "response.output_audio.delta"]
         assert deltas and sum(len(base64.b64decode(e["delta"])) for e in deltas) > 0, types
         assert events[-1]["type"] == "response.done" and events[-1]["response"]["status"] == "completed", types
+
+
+def _serve_two_text_turns(flags: list[str]) -> list[list[dict]]:
+    from s2s_tpu_torch import cli
+    from s2s_tpu_torch.registry import GLOBAL_MODEL_CACHE
+
+    stop = threading.Event()
+    manager, server, _ = cli.build_from_argv(["--device", "cpu", *flags], stop)
+    manager.start()
+    try:
+        assert server.started.wait(30)
+        url = f"ws://127.0.0.1:{server.bound_port}/v1/realtime"
+
+        async def both():
+            return await asyncio.gather(_text_turn(url, "Hello there", 120), _text_turn(url, "How are you", 120))
+
+        return asyncio.run(both())
+    finally:
+        stop.set()
+        manager.stop()
+
+
+def _assert_spoken(results: list[list[dict]]) -> None:
+    for events in results:
+        types = [e["type"] for e in events]
+        deltas = [e for e in events if e["type"] == "response.output_audio.delta"]
+        assert deltas and sum(len(base64.b64decode(e["delta"])) for e in deltas) > 0, types
+        assert events[-1]["type"] == "response.done" and events[-1]["response"]["status"] == "completed", types
+
+
+def test_tiny_batched_cpu_serve_with_kokoro_answers_two_text_turns():
+    """``--tts kokoro`` behind the batched LM: the registry's Kokoro factory and
+    handler, with the model at ``KokoroConfig.test_tiny()`` in the cache."""
+    from s2s_tpu_torch.models.kokoro import KokoroConfig, KokoroTTS
+    from s2s_tpu_torch.registry import GLOBAL_MODEL_CACHE
+
+    GLOBAL_MODEL_CACHE.clear()
+    tiny = GLOBAL_MODEL_CACHE.get(("kokoro", None, None, "en-us", False, "cpu"),
+                                  lambda: KokoroTTS(cfg=KokoroConfig.test_tiny()))
+    assert tiny.cfg == KokoroConfig.test_tiny()
+    try:
+        results = _serve_two_text_turns(tts_flags(BATCHED_FLAGS, "kokoro"))
+        assert GLOBAL_MODEL_CACHE.get(("kokoro", None, None, "en-us", False, "cpu"), KokoroTTS) is tiny
+    finally:
+        GLOBAL_MODEL_CACHE.clear()
+    _assert_spoken(results)
+
+
+def test_tiny_batched_cpu_serve_with_mms_answers_two_text_turns():
+    """``--tts facebookMMS`` behind the batched LM, the model at
+    ``VitsConfig.test_tiny()`` in the cache; its 16 kHz is the wire's rate."""
+    from s2s_tpu_torch.models.vits import VitsConfig, VitsTTS
+    from s2s_tpu_torch.registry import GLOBAL_MODEL_CACHE
+
+    GLOBAL_MODEL_CACHE.clear()
+    tiny = GLOBAL_MODEL_CACHE.get(("mms_vits", None, "cpu"), lambda: VitsTTS(cfg=VitsConfig.test_tiny()))
+    assert tiny.cfg == VitsConfig.test_tiny()
+    try:
+        results = _serve_two_text_turns(tts_flags(BATCHED_FLAGS, "facebookMMS"))
+        assert GLOBAL_MODEL_CACHE.get(("mms_vits", None, "cpu"), VitsTTS) is tiny
+    finally:
+        GLOBAL_MODEL_CACHE.clear()
+    _assert_spoken(results)
 
 
 def _voice_turn_events():
