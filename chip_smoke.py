@@ -149,9 +149,29 @@ Phases, each printed on its own line:
    time and kernels (Kokoro's phase A, alignment and phase B; VITS's one
    program), and its share of non-finite samples and largest finite one
    (with random weights Kokoro's exp head overflows: the serve's gate shows
-   only that the serve completes).
+   only that the serve completes);
+23. ``tiny_pocket_parity`` and ``tiny_chattts_parity`` (after phase 21):
+   tiny Pocket-TTS and ChatTTS on the card against the CPU with their
+   torch twins' weights (``POCKET_FIXTURE``, ``CHATTTS_FIXTURE``: the
+   fixtures through the JAX converters, stored as converted checkpoints):
+   greedy codes equal to the fixtures' (Pocket with and without its voice
+   prefix, ChatTTS with and without its speaker), Mimi's waveform within
+   ``MIMI_WAV_ATOL``, ChatTTS's mel within ``CHATTTS_MEL_ATOL``; random
+   weights: Pocket's codes equal and its stream, ChatTTS's syntheses
+   within ``TTS_WAV_REL`` x max|CPU|; each card run repeated with TF32 on
+   as a reading, not a gate;
+24. ``pocket_serve`` and ``chattts_serve`` (after phase 22): phase 22's
+   cascade with ``--tts pocket`` (``PocketTTSConfig()`` with ``MimiConfig()``,
+   bf16 LM, f32 Mimi; its output conv scaled by ``POCKET_MIMI_OUT_SCALE``
+   so random audio clears the silence trim) or ``--tts chatTTS``
+   (``ChatTTSConfig()``, f32), with the same gate; each served synthesis
+   timed inside the model's ``stream``; profiles of ``SYNTH_TEXTS`` (and,
+   for Pocket, ``TEXT`` through a random voice prefix of
+   ``POCKET_VOICE_ROWS`` rows): Pocket's 8-frame chunks split into frame
+   generation and the Mimi re-decode, ChatTTS's synthesis into the prefill
+   with the AR loop and the DVAE with Vocos and the iSTFT.
 
-Phases 3, 4, 8, 9, 10, 12, 13, 14 and 21 run with TF32 off, so that f32
+Phases 3, 4, 8, 9, 10, 12, 13, 14, 21 and 23 run with TF32 off, so that f32
 products are compared in full f32; the serves and phases 16-20 run with
 torch's defaults, as ``s2s_tpu_torch.cli`` does (cuDNN's convolutions, so
 Kokoro's and VITS's, in TF32).  A ``seconds`` line gives each
@@ -162,9 +182,11 @@ operations over the card's peak for their type.
 After the phases come the card's ``nvidia-smi`` name and power limit, then,
 on the line before the last, a JSON object of the kernels (``launches`` from
 their main paths' serves; the int8 and decode-attention entries also carry
-the deployment, Kokoro and MMS serves' as ``deployment_serve_launches``,
-``kokoro_serve_launches`` and ``mms_serve_launches``; the log-mel's
-``launches_by_caller`` counts those two serves too); the last line is
+the deployment, Kokoro, MMS, Pocket and ChatTTS serves' as
+``deployment_serve_launches``, ``kokoro_serve_launches``,
+``mms_serve_launches``, ``pocket_serve_launches`` and
+``chattts_serve_launches``; the log-mel's ``launches_by_caller`` counts
+those four TTS serves too); the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
 before those lines.
 """
@@ -324,6 +346,42 @@ KOKORO_WAV_ATOL, KOKORO_WAV_REL_RMS = 2e-3, 1e-3
 #: tiny VITS on the card against the CPU: the JAX package's bound against
 #: transformers' VitsModel
 VITS_WAV_ATOL = 2e-4
+#: tiny Pocket-TTS and ChatTTS from their torch twins' fixtures through the
+#: JAX converters, stored as converted checkpoints beside the fixtures'
+#: inputs and outputs (``tests/test_torch_port_{pocket,chattts}.py`` hold
+#: each file equal to the converters' output; this script imports nothing of
+#: the JAX package)
+POCKET_FIXTURE = "tests/data/pocket_parity_converted.npz"
+CHATTTS_FIXTURE = "tests/data/chattts_parity_converted.npz"
+#: the Mimi waveform on the card against the CPU (TF32 off): the JAX
+#: package's bound against its torch twin
+MIMI_WAV_ATOL = 2e-6
+#: ChatTTS's mel on the card against the CPU: the JAX package's DVAE bound;
+#: a whole waveform (Pocket's stream, ChatTTS through its exp head and the
+#: iSTFT) relative to max|CPU|: the CPU tests' bound against the JAX package
+CHATTTS_MEL_ATOL = 1e-5
+TTS_WAV_REL = 1e-5
+#: random Mimi at full width peaks near 1.5e-3, under the TTS handler's
+#: 0.01 silence threshold, so every reply would be trimmed to nothing: the
+#: served Pocket model's output conv is scaled by this (tests/test_tts.py
+#: scales the tiny one's by 2000 for the same reason); random ChatTTS peaks
+#: near 0.08 and is served as drawn
+POCKET_MIMI_OUT_SCALE = 50.0
+#: the profiled voiced Pocket synthesis: a random voice prefix of this many
+#: rows of backbone width, added with ``PocketTTS.add_voice``
+POCKET_VOICE_ROWS = 32
+#: a profiled synthesis traces this many 8-frame chunks' frame generation
+#: (Pocket) or AR steps (ChatTTS) and runs the rest untraced: every one of
+#: ``TEXT``'s, the first of the long text's (each chunk and step is the same
+#: work but for its cache length; tracing a kernel costs about 3x its host
+#: time, and the long texts' full traces took 70 s of the run); Mimi's
+#: re-decodes and ChatTTS's prefill, DVAE and Vocos are traced in full
+POCKET_TRACED_CHUNKS = 8
+CHATTTS_TRACED_STEPS = 180
+#: the served TTS families: the phase name and the model's method each
+#: served synthesis goes through (timed; Pocket and ChatTTS stream)
+TTS_SERVES = {"kokoro": ("kokoro_serve", "synthesize"), "facebookMMS": ("mms_serve", "synthesize"),
+              "pocket": ("pocket_serve", "stream"), "chatTTS": ("chattts_serve", "stream")}
 L2_BYTES = 50 << 20
 #: H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, dense bf16 FLOP/s, dense int8 OP/s
 HBM_BPS = 3.35e12
@@ -343,9 +401,10 @@ def check(ok: bool, what: str) -> None:
 
 
 @contextlib.contextmanager
-def no_tf32():
+def tf32_mode(enabled: bool):
+    """TF32 for f32 products and cuDNN's convolutions on or off in the block."""
     old = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = enabled
     try:
         yield
     finally:
@@ -2182,6 +2241,142 @@ def tiny_vits_parity_phase(dev: torch.device) -> None:
           zeros_past_each_length=zeros, wav_max_abs=peak)
 
 
+def _fixture(path: str) -> tuple[dict, dict]:
+    """A converted fixture file: (its ``tree`` as the registry loads a
+    converted checkpoint, its ``fx`` arrays as numpy)."""
+    from s2s_tpu_torch.registry import _load_checkpoint
+
+    loaded = _load_checkpoint(path)
+    return loaded["tree"], {k: np.asarray(v) for k, v in loaded["fx"].items()}
+
+
+def _rel_err(ref: list[np.ndarray], got: list[np.ndarray]) -> float | None:
+    """max |got - ref| over max |ref| across paired arrays; None where the
+    shapes differ."""
+    if [a.shape for a in ref] != [b.shape for b in got]:
+        return None
+    err = max(float(np.abs(a - b).max()) for a, b in zip(ref, got))
+    peak = max(float(np.abs(a).max()) for a in ref)
+    return err / peak if peak else err
+
+
+def tiny_pocket_parity_phase(dev: torch.device) -> None:
+    """Tiny Pocket-TTS on the card against the same code on the CPU, with
+    the twin's converted weights (``POCKET_FIXTURE``): 12 frames' greedy
+    codes equal to the fixture's, without and with its voice prefix, on both
+    devices; the fixture's Mimi codes decoded within ``MIMI_WAV_ATOL`` of the
+    CPU; then random weights (a torch seed): 24 frames' codes and EOS flags
+    equal, and ``PocketTTS.stream`` of ``TEXT`` in the same chunks within
+    ``TTS_WAV_REL`` x max|CPU|.  The card run is repeated with TF32 on, as a
+    reading (not a gate)."""
+    from s2s_tpu_torch import weights
+    from s2s_tpu_torch.models import mimi, pocket_tts
+
+    tree, fx = _fixture(POCKET_FIXTURE)
+    cfg = pocket_tts.PocketTTSConfig.tiny()
+    drawn = pocket_tts.init_params(cfg, torch.Generator().manual_seed(8))
+
+    def run(device) -> dict:
+        p = weights.pocket_params(tree, device)
+        out = {}
+        for voice in (None, fx["voice"]):
+            state = pocket_tts.init_state(cfg, 1, cache_len=64, device=device)
+            if voice is not None:
+                state = state._replace(lm_state=pocket_tts.prefill_voice(
+                    p, cfg, torch.from_numpy(voice).to(device), state.lm_state))
+            codes, _, _ = pocket_tts.generate_frames(p, cfg, torch.from_numpy(fx["text"]).to(device), state, 12)
+            out["codes" if voice is None else "codes_v"] = codes.cpu().numpy()
+        out["wav"] = mimi.decode(p["mimi"], cfg.mimi, torch.from_numpy(fx["mimi_codes"]).to(device)).cpu().numpy()
+        model = pocket_tts.PocketTTS(params=weights.tree_to_torch(drawn, device), cfg=cfg, device=device)
+        state = pocket_tts.init_state(cfg, 1, cache_len=64, device=device)
+        codes, eos, _ = pocket_tts.generate_frames(model.params, cfg, model._text_array(TEXT), state, 24)
+        out["drawn"] = (codes.cpu().numpy(), eos.cpu().numpy())
+        out["stream"] = [a for a, _ in model.stream(TEXT)]
+        return out
+
+    cpu = run("cpu")
+    for key in ("codes", "codes_v"):
+        check(np.array_equal(cpu[key], fx[key]), f"tiny pocket {key} on the CPU equal the fixture's")
+    readings = {}
+    for label, enabled in (("tf32_off", False), ("tf32_on", True)):
+        with tf32_mode(enabled):
+            card = run(dev)
+        readings[label] = {
+            "fixture_codes_equal": all(np.array_equal(card[k], fx[k]) for k in ("codes", "codes_v")),
+            "drawn_codes_equal": all(np.array_equal(a, b) for a, b in zip(card["drawn"], cpu["drawn"])),
+            "mimi_wav_max_abs_err": float(np.abs(card["wav"] - cpu["wav"]).max()),
+            "stream_chunks": [a.size for a in card["stream"]],
+            "stream_max_abs_err_rel": _rel_err(cpu["stream"], card["stream"]),
+        }
+    off = readings["tf32_off"]
+    check(off["fixture_codes_equal"] and off["drawn_codes_equal"], f"tiny pocket codes cuda vs cpu {off}")
+    check(off["mimi_wav_max_abs_err"] <= MIMI_WAV_ATOL, f"tiny mimi waveform cuda vs cpu {off}")
+    check(off["stream_max_abs_err_rel"] is not None and off["stream_max_abs_err_rel"] <= TTS_WAV_REL,
+          f"tiny pocket stream cuda vs cpu {off}")
+    phase("tiny_pocket_parity", fixture_frames=12, voice_rows=int(fx["voice"].shape[1]),
+          mimi_wav_cpu_vs_fixture=float(np.abs(cpu["wav"] - fx["mimi_wav"]).max()),
+          stream_chunks_cpu=[a.size for a in cpu["stream"]], readings=readings,
+          bounds={"mimi_wav_atol": MIMI_WAV_ATOL, "stream_rel": TTS_WAV_REL})
+
+
+def tiny_chattts_parity_phase(dev: torch.device) -> None:
+    """Tiny ChatTTS on the card against the same code on the CPU, with the
+    twin's converted weights (``CHATTTS_FIXTURE``): 10 frames' greedy codes
+    equal to the fixture's, with and without its speaker, on both devices;
+    the DVAE's mel of the fixture's codes within ``CHATTTS_MEL_ATOL`` of the
+    CPU; then random weights (a torch seed, the Vocos head scaled by 50 as
+    ``tests/test_chattts.py`` scales it) and an explicit speaker:
+    ``ChatTTSModel.synthesize`` of two texts, the same lengths and within
+    ``TTS_WAV_REL`` x max|CPU|.  The card run is repeated with TF32 on, as a
+    reading (not a gate)."""
+    from s2s_tpu_torch import weights
+    from s2s_tpu_torch.models import chattts, decoder_lm
+
+    tree, fx = _fixture(CHATTTS_FIXTURE)
+    cfg = chattts.ChatTTSConfig.tiny()
+    drawn = chattts.init_params(cfg, torch.Generator().manual_seed(9))
+    drawn["vocos"]["head"]["w"] *= 50.0
+    speaker = chattts.sample_speaker(drawn, torch.Generator().manual_seed(9))
+    texts = ("Hello there.", TEXT)
+
+    def run(device) -> dict:
+        p = weights.chattts_params(tree, device)
+        out = {}
+        for key, spk in (("codes", fx["spk"]), ("codes_nospk", None)):
+            state = decoder_lm.init_decode_state(cfg.gpt, 1, max_t=64, device=device)
+            cstate, codes0, _ = chattts.prefill(p, cfg, torch.from_numpy(fx["text"]).to(device),
+                                                None if spk is None else torch.from_numpy(spk).to(device), state)
+            rest, _, _ = chattts.generate_codes(p, cfg, cstate, 9)
+            out[key] = torch.cat([codes0[None], rest]).cpu().numpy()
+        out["mel"] = chattts.dvae_decode(p["dvae"], cfg.dvae,
+                                         torch.from_numpy(fx["codes"]).to(device).transpose(0, 1)).cpu().numpy()
+        model = chattts.ChatTTSModel(params=weights.tree_to_torch(drawn, device), cfg=cfg, device=device)
+        out["wavs"] = [model.synthesize(text, speaker=speaker) for text in texts]
+        return out
+
+    cpu = run("cpu")
+    for key in ("codes", "codes_nospk"):
+        check(np.array_equal(cpu[key], fx[key]), f"tiny chattts {key} on the CPU equal the fixture's")
+    readings = {}
+    for label, enabled in (("tf32_off", False), ("tf32_on", True)):
+        with tf32_mode(enabled):
+            card = run(dev)
+        readings[label] = {
+            "fixture_codes_equal": all(np.array_equal(card[k], fx[k]) for k in ("codes", "codes_nospk")),
+            "mel_max_abs_err": float(np.abs(card["mel"] - cpu["mel"]).max()),
+            "samples": [a.size for a in card["wavs"]],
+            "wav_max_abs_err_rel": _rel_err(cpu["wavs"], card["wavs"]),
+        }
+    off = readings["tf32_off"]
+    check(off["fixture_codes_equal"] and off["mel_max_abs_err"] <= CHATTTS_MEL_ATOL,
+          f"tiny chattts codes and mel cuda vs cpu {off}")
+    check(off["wav_max_abs_err_rel"] is not None and off["wav_max_abs_err_rel"] <= TTS_WAV_REL,
+          f"tiny chattts waveforms cuda vs cpu {off}")
+    phase("tiny_chattts_parity", fixture_frames=10, mel_cpu_vs_fixture=float(np.abs(cpu["mel"] - fx["mel"]).max()),
+          samples_cpu=[a.size for a in cpu["wavs"]], readings=readings,
+          bounds={"mel_atol": CHATTTS_MEL_ATOL, "wav_rel": TTS_WAV_REL})
+
+
 def _device_activity(fn):
     """(result, device busy ms, kernels, copies and memsets) of ``fn()`` under
     ``torch.profiler`` (device activity only)."""
@@ -2258,34 +2453,206 @@ def _synthesis_profile(model) -> list[dict]:
     return rows
 
 
+@contextlib.contextmanager
+def _profiled(module, name: str, calls: list, traced: int | None = None):
+    """The first *traced* calls (all by default) of ``module.name`` in the
+    block run under ``_device_activity``; *calls* gets (device ms, kernels,
+    copies, the call's positional arguments) for each, the device fields
+    None for a call run untraced."""
+    real = getattr(module, name)
+
+    def wrapped(*args, **kwargs):
+        if traced is not None and len(calls) >= traced:
+            calls.append((None, None, None, args))
+            return real(*args, **kwargs)
+        result, busy, kernels, copies = _device_activity(lambda: real(*args, **kwargs))
+        calls.append((busy, kernels, copies, args))
+        return result
+
+    setattr(module, name, wrapped)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def _part(calls: list) -> dict:
+    """A part's traced calls summed (device time and kernels of its untraced
+    calls are not measured)."""
+    traced = [c for c in calls if c[0] is not None]
+    return {"calls": len(calls), "traced_calls": len(traced), "device_ms": sum(c[0] for c in traced),
+            "kernels": sum(c[1] for c in traced), "copies": sum(c[2] for c in traced)}
+
+
+def _timed_synthesis(fn) -> tuple[np.ndarray, float, int, int]:
+    """(audio, wall s, peak bytes above what was resident, resident bytes) of
+    ``fn()``, on a model the serve's turns have already run (no warm call);
+    *fn* returns host audio, so it has synchronized."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    audio = fn()
+    wall = time.perf_counter() - t0
+    return audio, wall, torch.cuda.max_memory_allocated() - base, base
+
+
+def _pocket_profile(model) -> list[dict]:
+    """One Pocket synthesis of each of ``SYNTH_TEXTS`` and one of ``TEXT``
+    through a random voice prefix of ``POCKET_VOICE_ROWS`` rows (added with
+    ``add_voice``) on the served model: wall time and peak allocation, then
+    under ``torch.profiler`` the frame generation of the first
+    ``POCKET_TRACED_CHUNKS`` 8-frame chunks and every chunk's Mimi re-decode
+    (with ``decode_deficit`` frames of left context): device time, kernels,
+    and the frames each decode covers."""
+    from s2s_tpu_torch.models import mimi, pocket_tts
+
+    voice = np.random.default_rng(0).normal(0, 0.3, (POCKET_VOICE_ROWS, model.cfg.backbone.d_model))
+    model.add_voice("profiled", voice)
+    rows = []
+    for text, voice_name in [*((t, None) for t in SYNTH_TEXTS.values()), (TEXT, "profiled")]:
+        audio, wall, peak, base = _timed_synthesis(lambda: model.synthesize(text, voice=voice_name))
+        frames, decodes = [], []
+        t0 = time.perf_counter()
+        with _profiled(pocket_tts, "generate_frames", frames, POCKET_TRACED_CHUNKS), \
+                _profiled(mimi, "decode", decodes):
+            profiled = model.synthesize(text, voice=voice_name)
+        profiled_s = time.perf_counter() - t0
+        check(profiled.size == audio.size, f"pocket profiled synthesis {profiled.size} samples vs {audio.size}")
+        decoded = [c[3][2].shape[1] for c in decodes]
+        parts = {"frames": _part(frames), "mimi_redecode": _part(decodes)}
+        rows.append({"text_chars": len(text), "voice_rows": POCKET_VOICE_ROWS if voice_name else 0,
+                     "frames": sum(c[3][4] for c in frames), "chunks": len(frames),
+                     "audio_seconds": audio.size / pocket_tts.SAMPLE_RATE, "wall_ms": wall * 1e3,
+                     "profiled_wall_ms": profiled_s * 1e3, "first_chunk_device_ms": frames[0][0] + decodes[0][0],
+                     "max_abs": float(np.abs(audio).max()),
+                     "parts": parts, "mimi_frames_per_decode": [min(decoded), max(decoded)],
+                     "per_chunk_device_ms": {k: v["device_ms"] / v["traced_calls"] for k, v in parts.items()},
+                     "kernels": sum(v["kernels"] for v in parts.values()),
+                     "peak_bytes_above_resident": peak, "resident_bytes": base})
+    return rows
+
+
+def _chattts_profile(model) -> list[dict]:
+    """One ChatTTS synthesis of each of ``SYNTH_TEXTS`` (speaker seed 0) on
+    the served model: wall time and peak allocation, then under
+    ``torch.profiler`` the prefill with the AR loop's first
+    ``CHATTTS_TRACED_STEPS`` steps (the loop split there; the rest runs
+    untraced), and the DVAE with Vocos and the iSTFT: device time and
+    kernels."""
+    from s2s_tpu_torch.models import chattts
+
+    real_codes = chattts.generate_codes
+    rows = []
+    for text in SYNTH_TEXTS.values():
+        audio, wall, peak, base = _timed_synthesis(lambda: model.synthesize(text, seed=0))
+        pre, loop, vocoder = [], [], []
+
+        def split_codes(params, cfg, state, n_tokens):  # chunked generation is exact, as one-shot
+            k = min(n_tokens, CHATTTS_TRACED_STEPS)
+            head, *traced = _device_activity(lambda: real_codes(params, cfg, state, k))
+            loop.append((*traced, (params, cfg, state, k)))
+            if k == n_tokens:
+                return head
+            tail = real_codes(params, cfg, head[2], n_tokens - k)
+            loop.append((None, None, None, (params, cfg, head[2], n_tokens - k)))
+            return torch.cat([head[0], tail[0]]), torch.cat([head[1], tail[1]]), tail[2]
+
+        t0 = time.perf_counter()
+        chattts.generate_codes = split_codes
+        try:
+            with _profiled(chattts, "prefill", pre), _profiled(chattts, "dvae_decode", vocoder), \
+                    _profiled(chattts, "vocos_decode", vocoder):
+                profiled = model.synthesize(text, seed=0)
+        finally:
+            chattts.generate_codes = real_codes
+        profiled_s = time.perf_counter() - t0
+        check(profiled.size == audio.size, f"chattts profiled synthesis {profiled.size} samples vs {audio.size}")
+        parts = {"prefill_and_ar": _part(pre + loop), "dvae_vocos_istft": _part(vocoder)}
+        rows.append({"text_chars": len(text), "prompt_tokens": int(model._encode(text).shape[1]),
+                     # the prefill's frame, then the AR steps
+                     "tokens": 1 + sum(c[3][3] for c in loop),
+                     "ar_traced_steps": sum(c[3][3] for c in loop if c[0] is not None),
+                     "audio_seconds": audio.size / chattts.SAMPLE_RATE,
+                     "wall_ms": wall * 1e3, "profiled_wall_ms": profiled_s * 1e3,
+                     "max_abs": float(np.abs(audio).max()) if audio.size else 0.0,
+                     "parts": parts, "kernels": sum(v["kernels"] for v in parts.values()),
+                     "peak_bytes_above_resident": peak, "resident_bytes": base})
+    return rows
+
+
+def _timed_method(cls, name: str, synths: list):
+    """*cls*'s method *name* with each call's wall time and audio seconds
+    appended to *synths*: ``synthesize`` returns host audio (so it has
+    synchronized); ``stream`` is a generator, timed inside its own steps (not
+    while the handler holds a chunk)."""
+    real = getattr(cls, name)
+    if name == "synthesize":
+        def timed(self, *args, **kwargs):
+            t = time.perf_counter()
+            audio = real(self, *args, **kwargs)
+            synths.append((time.perf_counter() - t, audio.size / self.cfg.sample_rate))
+            return audio
+        return timed
+
+    def timed_stream(self, *args, **kwargs):
+        spent, seconds = 0.0, 0.0
+        steps = real(self, *args, **kwargs)
+        try:
+            while True:
+                t = time.perf_counter()
+                try:
+                    audio, rate = next(steps)
+                except StopIteration:
+                    return
+                finally:
+                    spent += time.perf_counter() - t
+                seconds += audio.size / rate
+                yield audio, rate
+        finally:
+            synths.append((spent, seconds))
+    return timed_stream
+
+
+def _served_tts_class(tts: str):
+    from s2s_tpu_torch.models import chattts, kokoro, pocket_tts, vits
+
+    return {"kokoro": kokoro.KokoroTTS, "facebookMMS": vits.VitsTTS, "pocket": pocket_tts.PocketTTS,
+            "chatTTS": chattts.ChatTTSModel}[tts]
+
+
+def audible_pocket(model):
+    """*model* with its Mimi output conv scaled by ``POCKET_MIMI_OUT_SCALE``
+    (random full-width Mimi output sits under the handler's silence
+    threshold)."""
+    model.params["mimi"]["final_conv"]["w"] *= POCKET_MIMI_OUT_SCALE
+    return model
+
+
 def tts_serve_phase(dev: torch.device, card: list[str], tts: str) -> dict[str, int]:
-    """The 4-session batched cascade with ``--tts kokoro`` or ``--tts
-    facebookMMS`` (``tts_flags(BATCHED_FLAGS, tts)``; full width, random
-    weights from seed 0, torch's defaults): build (the LM and Parakeet
+    """The 4-session batched cascade with ``--tts kokoro``, ``facebookMMS``,
+    ``pocket`` or ``chatTTS`` (``tts_flags(BATCHED_FLAGS, tts)``; full
+    width, random weights from seed 0, torch's defaults; Pocket's model is
+    built as the registry builds it and placed in the model cache under the
+    factory's key with ``audible_pocket``): build (the LM and Parakeet
     engines warmed), every count set to 0, four concurrent text turns (one a
     session), then voice turns in one session (``VOICE_TONES_HZ`` until one
     is answered); every reply must be non-silent PCM with ``response.done``,
     and the int8, decode-attention and Parakeet log-mel kernels must have
-    launched in the turns.  Each served synthesis is timed (wall clock; the
-    call returns host audio, so it has synchronized), then one synthesis a
-    text of ``SYNTH_TEXTS`` is profiled on the served model.  Returns the
-    kernels' launches over the turns."""
+    launched in the turns.  Each served synthesis is timed
+    (``_timed_method``), then syntheses of ``SYNTH_TEXTS`` are profiled on
+    the served model (``_synthesis_profile``, ``_pocket_profile``,
+    ``_chattts_profile``).  Returns the kernels' launches over the turns."""
     from s2s_tpu_torch import builder, cli
-    from s2s_tpu_torch.models import kokoro, vits
     from s2s_tpu_torch.registry import GLOBAL_MODEL_CACHE
 
+    name, method = TTS_SERVES[tts]
     flags = tts_flags(BATCHED_FLAGS, tts)
-    cls = kokoro.KokoroTTS if tts == "kokoro" else vits.VitsTTS
+    cls = _served_tts_class(tts)
     counters = _launch_counters()
     synths: list[tuple[float, float]] = []
-    real_synthesize, untimed = cls.synthesize, builder.warmup_engines
+    real_method, untimed = getattr(cls, method), builder.warmup_engines
     warm = {}
-
-    def timed_synthesize(self, *args, **kwargs):
-        t = time.perf_counter()
-        audio = real_synthesize(self, *args, **kwargs)
-        synths.append((time.perf_counter() - t, audio.size / self.cfg.sample_rate))
-        return audio
 
     def timed_warmup():
         torch.cuda.synchronize()
@@ -2293,10 +2660,16 @@ def tts_serve_phase(dev: torch.device, card: list[str], tts: str) -> dict[str, i
         untimed()
         warm["s"] = time.perf_counter() - t
 
-    cls.synthesize = timed_synthesize
+    setattr(cls, method, _timed_method(cls, method, synths))
     builder.warmup_engines = timed_warmup
     stop = threading.Event()
     try:
+        model_s = None
+        if tts == "pocket":
+            t0 = time.perf_counter()
+            GLOBAL_MODEL_CACHE.get(("pocket-tts", None, None, str(dev)), lambda: audible_pocket(cls(device=dev)))
+            torch.cuda.synchronize()
+            model_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         try:
             manager, server, _ = cli.build_from_argv(["--device", "cuda", *flags], stop)
@@ -2322,13 +2695,17 @@ def tts_serve_phase(dev: torch.device, card: list[str], tts: str) -> dict[str, i
                 torch.cuda.synchronize()
                 launches = {name: fn.launches for name, fn in counters.items()}
             served = synths[:]
-            profile_rows = _synthesis_profile(next(iter(models.values())))
+            model = next(iter(models.values()))
+            profile = {"pocket": _pocket_profile, "chatTTS": _chattts_profile}.get(tts, _synthesis_profile)
+            t0 = time.perf_counter()
+            profile_rows = profile(model)
+            profile_s = time.perf_counter() - t0
         finally:
             stop.set()
             manager.stop()
             GLOBAL_MODEL_CACHE.clear()
     finally:
-        cls.synthesize = real_synthesize
+        setattr(cls, method, real_method)
         builder.warmup_engines = untimed
 
     check("s" in warm, "--warmup_engines warmed the batched engines")
@@ -2338,19 +2715,20 @@ def tts_serve_phase(dev: torch.device, card: list[str], tts: str) -> dict[str, i
         sessions.append({"ttfa_s": _first_audio_s(events), "turn_s": done, "audio_seconds": pcm.size / 24_000})
     check(audio is not None, f"{tts} serve: a voice turn answered with audio: {attempts}")
     voice = _voice_summary(audio)
-    for name in ("int8_matmul", "decode_attention"):
-        check(launches[name] > 0, f"{name} launched in the {tts} serve's turns: {launches}")
+    for kernel in ("int8_matmul", "decode_attention"):
+        check(launches[kernel] > 0, f"{kernel} launched in the {tts} serve's turns: {launches}")
     check_parakeet_frontend(launches["parakeet_log_mel"], stt["batches"], f"{tts} serve")
     wall, seconds = sum(w for w, _ in served), sum(a for _, a in served)
-    phase(f"{'kokoro' if tts == 'kokoro' else 'mms'}_serve", card=card, flags=flags[flags.index("--tts"):][:2],
+    extra = {"model_build_s": model_s, "mimi_out_scale": POCKET_MIMI_OUT_SCALE} if tts == "pocket" else {}
+    phase(name, card=card, flags=flags[flags.index("--tts"):][:2],
           sessions=SESSIONS, build_s=build_s, warmup_s=warm["s"], round_s=round_s, text_turns=sessions,
           voice_attempts=attempts, voice_turn=voice, transcription_batches=stt["batches"],
           syntheses=len(served), synthesis_audio_s=seconds, synthesis_wall_s=wall,
           synthesis_rtf=seconds / wall if wall else 0.0,
           text_round_synthesis_wall_s=[w for w, _ in text_synths],
           launches={k: launches[k] for k in ("int8_matmul", "decode_attention", "parakeet_log_mel")},
-          per_synthesis=profile_rows, tf32={"matmul": torch.backends.cuda.matmul.allow_tf32,
-                                            "cudnn": torch.backends.cudnn.allow_tf32})
+          per_synthesis=profile_rows, profile_s=profile_s,
+          tf32={"matmul": torch.backends.cuda.matmul.allow_tf32, "cudnn": torch.backends.cudnn.allow_tf32}, **extra)
     return launches
 
 
@@ -2387,7 +2765,7 @@ def main() -> int:
     def run(name: str, fn, *args, tf32: bool = True):
         """Run one phase (with TF32 off unless *tf32*), keeping its seconds."""
         t0 = time.perf_counter()
-        with contextlib.nullcontext() if tf32 else no_tf32():
+        with contextlib.nullcontext() if tf32 else tf32_mode(False):
             result = fn(*args)
         seconds[name] = time.perf_counter() - t0
         return result
@@ -2402,13 +2780,14 @@ def main() -> int:
     run("tiny_batched_parity", tiny_batched_parity_phase, dev, tf32=False)
     run("tiny_kokoro_parity", tiny_kokoro_parity_phase, dev, tf32=False)
     run("tiny_vits_parity", tiny_vits_parity_phase, dev, tf32=False)
+    run("tiny_pocket_parity", tiny_pocket_parity_phase, dev, tf32=False)
+    run("tiny_chattts_parity", tiny_chattts_parity_phase, dev, tf32=False)
     # under torch's defaults, as the serve runs it; before any other profiler session in this process (a
     # profiler started after the traced round's dropped some or all of a tick's device events on an H100)
     run("silero", silero_phase, dev, smi)
-    # the Kokoro and MMS cascades, under torch's defaults as the CLI serves them; their per-synthesis
-    # profiles come before the traced round's profiler session, as Silero's do
-    kokoro = run("kokoro_serve", tts_serve_phase, dev, smi, "kokoro")
-    mms = run("mms_serve", tts_serve_phase, dev, smi, "facebookMMS")
+    # the Kokoro, MMS, Pocket and ChatTTS cascades, under torch's defaults as the CLI serves them; their
+    # per-synthesis profiles come before the traced round's profiler session, as Silero's do
+    tts = {name: run(TTS_SERVES[name][0], tts_serve_phase, dev, smi, name) for name in TTS_SERVES}
     single = run("serve", serve_phase, dev)
     launches = run("batched_serve", batched_serve_phase, dev, smi)
     dyn = run("int8_matmul_dyn", int8_dyn_phase, dev, str(library), tf32=False)
@@ -2428,9 +2807,9 @@ def main() -> int:
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     mel_launches = {"whisper_serve": whisper_launches["log_mel"], "serve": single["parakeet_log_mel"],
-                    "batched_serve": launches["parakeet_log_mel"], "kokoro_serve": kokoro["parakeet_log_mel"],
-                    "mms_serve": mms["parakeet_log_mel"]}
-    tts_serves = {name: {"kokoro_serve_launches": kokoro[name], "mms_serve_launches": mms[name]}
+                    "batched_serve": launches["parakeet_log_mel"],
+                    **{TTS_SERVES[t][0]: tts[t]["parakeet_log_mel"] for t in TTS_SERVES}}
+    tts_serves = {name: {f"{TTS_SERVES[t][0]}_launches": tts[t][name] for t in TTS_SERVES}
                   for name in ("int8_matmul", "decode_attention")}
     print(smi[0])
     print(json.dumps({"kernels": [

@@ -7,9 +7,10 @@ The ported backends register under the SAME names, so the JAX package's
 flags work verbatim: ``whisper`` (and its ``faster-whisper``, ``whisper-mlx``
 and ``mlx-audio-whisper`` aliases), ``parakeet-tdt``, ``none`` (audio
 straight to the LLM), ``responses-api`` and ``chat-completions`` (the remote
-LLMs, host code copied from the JAX package), ``local-jax``, and the TTS
-families ``qwen3``, ``kokoro`` (Kokoro-82M) and ``facebookMMS`` (MMS/VITS).
-The rest raise while the flags are parsed (:func:`get_backend`).
+LLMs, host code copied from the JAX package), ``local-jax``, and every TTS
+family of the JAX package: ``qwen3``, ``kokoro`` (Kokoro-82M),
+``facebookMMS`` (MMS/VITS), ``pocket`` (Pocket-TTS with Mimi) and
+``chatTTS``.  The rest raise while the flags are parsed (:func:`get_backend`).
 
 With several pipeline units (``--num_pipelines``) or batched slots
 (``--llm_batched_slots``, ``--tts_batched_slots``) above 1, every unit shares
@@ -435,6 +436,83 @@ def _make_mms_tts(config, ctx: HandlerContext):
     )
 
 
+def _make_pocket_tts(config, ctx: HandlerContext):
+    from s2s_tpu_torch.models.pocket_tts import PocketTTS
+    from s2s_tpu_torch.tts.pocket_handler import PocketTTSHandler
+
+    def build():
+        tokenizer = None
+        if getattr(config, "tokenizer", None):
+            from s2s_tpu_torch.stt.tokenizer import SentencePieceTokenizer
+
+            tokenizer = SentencePieceTokenizer.from_file(config.tokenizer)
+        tree = _load_checkpoint(config.checkpoint)
+        model = PocketTTS(params=weights.pocket_params(tree, ctx.device) if tree is not None else None,
+                          tokenizer=tokenizer, device=ctx.device)
+        # named voice prefixes: --tts_ref_spk <converted pocket-voice .npz>
+        # (one file -> voice name = file stem)
+        if getattr(config, "ref_spk", None):
+            import os
+
+            tree = _load_checkpoint(config.ref_spk)
+            voice = tree.get("voice") if isinstance(tree, dict) else tree
+            model.add_voice(os.path.splitext(os.path.basename(config.ref_spk))[0], voice)
+        return model
+
+    model = ctx.model_cache.get(
+        ("pocket-tts", config.checkpoint, getattr(config, "ref_spk", None), str(ctx.device)), build)
+    ref = None
+    if config.ref_audio:
+        import wave
+
+        import numpy as np
+
+        with wave.open(config.ref_audio) as w:
+            ref = np.frombuffer(w.readframes(w.getnframes()), np.int16).astype(np.float32) / 32768.0
+    voice = getattr(config, "voice", None) or (sorted(model.voices)[0] if model.voices else None)
+    return PocketTTSHandler(
+        ctx.stop_event, ctx.queue_in, ctx.queue_out,
+        setup_kwargs=dict(
+            cancel_scope=ctx.cancel_scope,
+            speculative_turns=ctx.speculative_turns,
+            device_scheduler=ctx.device_scheduler,
+            should_listen=ctx.should_listen,
+            model=model,
+            voice=voice,
+            voice_ref_audio=ref,
+            speed=config.speed,
+            blocksize=config.blocksize,
+            speculative_synthesis=getattr(config, "speculative_synthesis", True),
+        ),
+    )
+
+
+def _make_chattts(config, ctx: HandlerContext):
+    from s2s_tpu_torch.models.chattts import ChatTTSModel
+    from s2s_tpu_torch.tts.chattts_handler import ChatTTSHandler
+
+    def build():
+        tree = _load_checkpoint(config.checkpoint)
+        return ChatTTSModel(params=weights.chattts_params(tree, ctx.device) if tree is not None else None,
+                            device=ctx.device)
+
+    model = ctx.model_cache.get(("chattts", config.checkpoint, str(ctx.device)), build)
+    return ChatTTSHandler(
+        ctx.stop_event, ctx.queue_in, ctx.queue_out,
+        setup_kwargs=dict(
+            cancel_scope=ctx.cancel_scope,
+            speculative_turns=ctx.speculative_turns,
+            device_scheduler=ctx.device_scheduler,
+            should_listen=ctx.should_listen,
+            model=model,
+            stream=config.stream,
+            seed=config.seed,
+            blocksize=config.blocksize,
+            speculative_synthesis=getattr(config, "speculative_synthesis", True),
+        ),
+    )
+
+
 def _load_vocab_sidecar(path: str | None):
     """MMS per-language char vocab written by the converter next to the npz."""
     if not path:
@@ -493,10 +571,12 @@ def unflatten_params(flat: dict) -> dict:
 # ── registries ───────────────────────────────────────────────────────
 
 from s2s_tpu_torch.arguments import (  # noqa: E402
+    ChatTTSArgs,
     KokoroTTSArgs,
     LocalLLMArgs,
     MMSTTSArgs,
     ParakeetSTTArgs,
+    PocketTTSArgs,
     Qwen3TTSArgs,
     RemoteLLMArgs,
     WhisperSTTArgs,
@@ -525,6 +605,8 @@ TTS_BACKENDS: dict[str, BackendSpec] = {
     "qwen3": BackendSpec("qwen3", "tts", Qwen3TTSArgs, _make_qwen3_tts),
     "kokoro": BackendSpec("kokoro", "tts", KokoroTTSArgs, _make_kokoro_tts),
     "facebookMMS": BackendSpec("facebookMMS", "tts", MMSTTSArgs, _make_mms_tts),
+    "pocket": BackendSpec("pocket", "tts", PocketTTSArgs, _make_pocket_tts),
+    "chatTTS": BackendSpec("chatTTS", "tts", ChatTTSArgs, _make_chattts),
 }
 
 
@@ -553,7 +635,7 @@ def resolve_backend_alias(kind: str, name: str) -> str:
 
 def get_backend(kind: str, name: str) -> BackendSpec:
     """The spec of a ported backend; an unported one (``paraformer``,
-    ``local-vlm``, ``pocket``, ``chatTTS``) raises and names the ROADMAP
+    ``local-vlm``) raises and names the ROADMAP
     queue (``s2s_tpu_torch.arguments`` calls this while it parses)."""
     name = resolve_backend_alias(kind, name)
     registry = {"stt": STT_BACKENDS, "llm": LLM_BACKENDS, "tts": TTS_BACKENDS}[kind]

@@ -17,7 +17,8 @@ given device, with the layout changes the port makes:
 
 Those are the inverses of the transforms in the JAX package's checkpoint
 converters (``convert_c2w_state_dict``, parakeet ``convert_state_dict``,
-whisper and vits ``convert_hf_state_dict``, kokoro ``convert_state_dict``).
+whisper and vits ``convert_hf_state_dict``, the kokoro, mimi and chattts
+``convert_state_dict``).
 """
 
 from __future__ import annotations
@@ -203,4 +204,49 @@ def vits_params(tree: Any, device: torch.device | str) -> Any:
         blk["c1_w"] = [conv_weight(w) for w in blk["c1_w"]]
         blk["c2_w"] = [conv_weight(w) for w in blk["c2_w"]]
     dec["post_w"] = conv_weight(dec["post_w"])
+    return p
+
+
+def mimi_params(tree: Any, device: torch.device | str) -> Any:
+    """A Mimi decoder tree (``s2s_tpu/models/mimi.py`` layout: from its
+    ``init_decoder_params`` or ``convert_state_dict``/``convert_hf_state_dict``)
+    -> the port's: tensors on *device*, the SEANet convolutions in Conv1d
+    layout, its transposed convolutions in ConvTranspose1d layout, and the
+    depthwise upsample's ``(k, C)`` kernel (the JAX side flips it itself) as
+    ConvTranspose1d's ``(C, 1, k)``."""
+    p = tree_to_torch(tree, device)
+    p["upsample"]["w"] = p["upsample"]["w"].T[:, None, :].contiguous()
+    p["init_conv"]["w"] = conv_weight(p["init_conv"]["w"])
+    for blk in p["blocks"]:
+        blk["up"]["w"] = trans_conv_weight(blk["up"]["w"])
+        for unit in blk["units"]:
+            unit["c1"]["w"] = conv_weight(unit["c1"]["w"])
+            unit["c2"]["w"] = conv_weight(unit["c2"]["w"])
+    p["final_conv"]["w"] = conv_weight(p["final_conv"]["w"])
+    return p
+
+
+def pocket_params(tree: Any, device: torch.device | str) -> Any:
+    """A Pocket-TTS tree (``s2s_tpu/models/pocket_tts.py`` layout: from its
+    ``init_params`` or ``convert_state_dict``, with or without its ``mimi``
+    subtree) -> the port's: tensors on *device*; the LM side has no
+    convolution and keeps its layout, ``mimi`` goes through
+    :func:`mimi_params`."""
+    p = tree_to_torch({k: v for k, v in tree.items() if k != "mimi"}, device)
+    if "mimi" in tree:
+        p["mimi"] = mimi_params(tree["mimi"], device)
+    return p
+
+
+def chattts_params(tree: Any, device: torch.device | str) -> Any:
+    """A ChatTTS tree (``s2s_tpu/models/chattts.py`` layout: from its
+    ``init_params`` or ``convert_state_dict``) -> the port's: tensors on
+    *device*, the DVAE's and Vocos's convolutions (the depthwise ``(k, 1, C)``
+    ones -> ``(C, 1, k)``) in Conv1d layout; the GPT and the linear layers
+    keep theirs."""
+    p = tree_to_torch(tree, device)
+    dv, vc = p["dvae"], p["vocos"]
+    for conv in [*dv["conv_in"], dv["out_conv"], vc["embed"],
+                 *(blk["dw"] for blk in dv["blocks"]), *(layer["dw"] for layer in vc["layers"])]:
+        conv["w"] = conv_weight(conv["w"])
     return p

@@ -10,7 +10,9 @@ package's host code have not drifted from their originals.
   imports, the tiny two-session CPU serve of
   ``tests/test_torch_port_serve.py`` builds and answers two concurrent text
   turns with audio and ``response.done``, and the same serve builds with
-  ``--tts kokoro`` and with ``--tts facebookMMS`` (full width, random init).
+  ``--tts kokoro`` and ``--tts facebookMMS`` (full width, random init) and
+  with ``--tts pocket`` and ``--tts chatTTS`` (their tiny models in the
+  model cache under the factories' keys).
 - The drift guard: a verbatim copy equals its JAX module's text after the
   package-name substitution ``s2s_tpu.`` -> ``s2s_tpu_torch.``; in a trimmed
   or folded module, every definition it shares with its JAX module(s) equals
@@ -44,7 +46,7 @@ realtime/config.py realtime/handlers.py realtime/llm_proxy.py realtime/pipeline_
 realtime/server.py realtime/service.py realtime/transports.py realtime/types.py realtime/webrtc.py
 runtime/base_handler.py runtime/device_scheduler.py runtime/thread_manager.py
 stt/base.py stt/language_id.py stt/notifier.py stt/progressive.py stt/tokenizer.py
-tts/base.py tts/g2p.py tts/kokoro_handler.py tts/mms_handler.py
+tts/base.py tts/g2p.py tts/kokoro_handler.py tts/mms_handler.py tts/pocket_handler.py
 utils/common.py utils/sentences.py
 vad/energy.py vad/iterator.py
 """.split()
@@ -65,8 +67,8 @@ SHARED = {
         "the port's torch_resample_poly"),
     "registry.py": (
         ["registry.py"], {}, {"_make_whisper_stt", "_make_parakeet_stt", "_make_local_llm", "_make_qwen3_tts",
-                              "_make_kokoro_tts", "_make_mms_tts", "STT_BACKENDS", "LLM_BACKENDS", "TTS_BACKENDS",
-                              "resolve_backend_alias", "get_backend"},
+                              "_make_kokoro_tts", "_make_mms_tts", "_make_pocket_tts", "_make_chattts",
+                              "STT_BACKENDS", "LLM_BACKENDS", "TTS_BACKENDS", "resolve_backend_alias", "get_backend"},
         "folded: the registry types, loaders and aliases are copied; the factories and the registries "
         "are the port's (its devices, its models, unported backends raise)"),
     "ops/mel.py": (
@@ -86,6 +88,10 @@ SHARED = {
                                        "Qwen3TTSHandler._synthesize"},
         "folded: planning and speculation bookkeeping are copied; speakers and text ids go to the "
         "port's model and engine as tensors and host arrays"),
+    "tts/chattts_handler.py": (
+        ["tts/chattts_handler.py"], {}, {"ChatTTSHandler._resample_speaker"},
+        "trimmed: the JAX module draws the speaker with jax.random; the port draws it with its own "
+        "sample_speaker on a torch.Generator seeded from the same random.Random(seed) stream"),
     "llm/local_backend.py": (
         ["llm/local_backend.py"], {"LocalTorchLLMHandler": ["LocalJAXLLMHandler"]},
         {"lm_config", "LocalTorchLLMHandler.setup", "LocalTorchLLMHandler._jax_generate",
@@ -112,9 +118,9 @@ __init__.py audio/__init__.py llm/__init__.py models/__init__.py ops/__init__.py
 pipeline/__init__.py realtime/__init__.py runtime/__init__.py stt/__init__.py tts/__init__.py
 utils/__init__.py vad/__init__.py
 builder.py cli.py
-models/common.py models/decoder_lm.py models/kokoro.py models/parakeet.py models/qwen3_tts.py
-models/silero_vad.py models/vits.py models/whisper.py
-ops/decode_attention.py ops/int4_matmul.py ops/int8_matmul.py ops/quant.py
+models/chattts.py models/common.py models/decoder_lm.py models/kokoro.py models/mimi.py models/parakeet.py
+models/pocket_tts.py models/qwen3_tts.py models/silero_vad.py models/vits.py models/whisper.py
+ops/decode_attention.py ops/int4_matmul.py ops/int8_matmul.py ops/istft.py ops/quant.py
 parallel/batched_decode.py
 runtime/profiler.py
 """.split()
@@ -202,7 +208,15 @@ for events in results:
     types = [e["type"] for e in events]
     assert "response.output_audio.delta" in types, types
     assert events[-1]["type"] == "response.done" and events[-1]["response"]["status"] == "completed", types
-for tts, model in (("kokoro", "KokoroTTS"), ("facebookMMS", "VitsTTS")):
+from s2s_tpu_torch.models.chattts import ChatTTSConfig, ChatTTSModel
+from s2s_tpu_torch.models.pocket_tts import PocketTTS, PocketTTSConfig
+
+tiny = {"pocket": (("pocket-tts", None, None, "cpu"), lambda: PocketTTS(cfg=PocketTTSConfig.tiny())),
+        "chatTTS": (("chattts", None, "cpu"), lambda: ChatTTSModel(cfg=ChatTTSConfig.tiny()))}
+for tts, model in (("kokoro", "KokoroTTS"), ("facebookMMS", "VitsTTS"), ("pocket", "PocketTTS"),
+                   ("chatTTS", "ChatTTSModel")):
+    if tts in tiny:
+        GLOBAL_MODEL_CACHE.get(*tiny[tts])
     manager, _, _ = cli.build_from_argv(["--device", "cpu", *serve.tts_flags(serve.BATCHED_FLAGS, tts)],
                                         threading.Event())
     built = [type(h.model) for h in manager.handlers if type(getattr(h, "model", None)).__name__ == model]

@@ -8,10 +8,10 @@
 - A tiny serve with Whisper tiny and Smart Turn on answers a WebSocket voice
   turn: a transcription, Smart Turn predictions with none failed, and (for a
   non-empty random-init transcript) a spoken reply with ``response.done``.
-- Tiny batched serves with ``--tts kokoro`` and ``--tts facebookMMS`` (the
-  models at ``test_tiny()``, placed in the model cache under the factories'
-  keys) answer two concurrent text turns each with audio deltas and
-  ``response.done``.
+- Tiny batched serves with ``--tts kokoro``, ``--tts facebookMMS``, ``--tts
+  pocket`` and ``--tts chatTTS`` (the models at their tiny configs, placed in
+  the model cache under the factories' keys) answer two concurrent text
+  turns each with audio deltas and ``response.done``.
 - Every ``s2s_tpu_torch`` module imports, and both tiny pipelines build, in a
   process where importing ``jax`` or the JAX package ``s2s_tpu`` fails.
 - ``--model_parallel`` above 1 raises at build time instead of degrading.
@@ -192,6 +192,51 @@ def test_tiny_batched_cpu_serve_with_mms_answers_two_text_turns():
     _assert_spoken(results)
 
 
+def test_tiny_batched_cpu_serve_with_pocket_answers_two_text_turns():
+    """``--tts pocket`` behind the batched LM, the model at
+    ``PocketTTSConfig.tiny()`` in the cache, its Mimi output conv scaled by
+    2000 as ``tests/test_tts.py`` scales it (random weights synthesize
+    near-silence, which the handler trims)."""
+    from s2s_tpu_torch.models.pocket_tts import PocketTTS, PocketTTSConfig
+    from s2s_tpu_torch.registry import GLOBAL_MODEL_CACHE
+
+    def tiny_model():
+        model = PocketTTS(cfg=PocketTTSConfig.tiny())
+        model.params["mimi"]["final_conv"]["w"] *= 2000.0
+        return model
+
+    GLOBAL_MODEL_CACHE.clear()
+    tiny = GLOBAL_MODEL_CACHE.get(("pocket-tts", None, None, "cpu"), tiny_model)
+    try:
+        results = _serve_two_text_turns(tts_flags(BATCHED_FLAGS, "pocket"))
+        assert GLOBAL_MODEL_CACHE.get(("pocket-tts", None, None, "cpu"), PocketTTS) is tiny
+    finally:
+        GLOBAL_MODEL_CACHE.clear()
+    _assert_spoken(results)
+
+
+def test_tiny_batched_cpu_serve_with_chattts_answers_two_text_turns():
+    """``--tts chatTTS`` behind the batched LM, the model at
+    ``ChatTTSConfig.tiny()`` in the cache, its Vocos head scaled by 50 as
+    ``tests/test_chattts.py`` scales it."""
+    from s2s_tpu_torch.models.chattts import ChatTTSConfig, ChatTTSModel
+    from s2s_tpu_torch.registry import GLOBAL_MODEL_CACHE
+
+    def tiny_model():
+        model = ChatTTSModel(cfg=ChatTTSConfig.tiny())
+        model.params["vocos"]["head"]["w"] *= 50.0
+        return model
+
+    GLOBAL_MODEL_CACHE.clear()
+    tiny = GLOBAL_MODEL_CACHE.get(("chattts", None, "cpu"), tiny_model)
+    try:
+        results = _serve_two_text_turns(tts_flags(BATCHED_FLAGS, "chatTTS"))
+        assert GLOBAL_MODEL_CACHE.get(("chattts", None, "cpu"), ChatTTSModel) is tiny
+    finally:
+        GLOBAL_MODEL_CACHE.clear()
+    _assert_spoken(results)
+
+
 def _voice_turn_events():
     """3.25 s of a modulated 220 Hz tone between silences as PCM16 appends,
     then a commit."""
@@ -319,6 +364,8 @@ def test_unported_options_raise():
                             threading.Event())
     with pytest.raises(NotImplementedError, match="not ported"):
         cli.build_from_argv(["--device", "cpu", *TINY_FLAGS, "--stt", "paraformer"], threading.Event())
+    with pytest.raises(NotImplementedError, match="not ported"):
+        cli.build_from_argv(["--device", "cpu", *TINY_FLAGS, "--llm_backend", "local-vlm"], threading.Event())
 
 
 def test_whisper_aliases_and_voice_cloning_build(tmp_path):

@@ -1,10 +1,12 @@
-"""The JAX package's host tests of the Kokoro and MMS families' host code,
-run against the port's copies.
+"""The JAX package's host tests of the Kokoro, MMS, Pocket and ChatTTS
+families' host code, run against the port's copies.
 
-``s2s_tpu_torch/tts/g2p.py`` and ``tts/kokoro_handler.py`` are verbatim
-copies of the JAX package's modules (the drift guard in
-``tests/test_torch_port_selfcontained.py`` holds them equal), and the port's
-``KokoroTTS`` and registry factory take the JAX package's arguments.  This
+``s2s_tpu_torch/tts/g2p.py``, ``tts/kokoro_handler.py`` and
+``tts/pocket_handler.py`` are verbatim copies of the JAX package's modules
+(the drift guard in ``tests/test_torch_port_selfcontained.py`` holds them
+equal), ``tts/chattts_handler.py`` differs only in its speaker draw, and the
+port's ``KokoroTTS``, ``PocketTTS``, ``ChatTTSModel`` and registry factories
+take the JAX package's arguments.  This
 file loads the named subset of each JAX test module below with the package
 name substituted (``s2s_tpu.`` -> ``s2s_tpu_torch.``), as
 ``tests/test_torch_port_remote_llm.py`` does for whole modules, and collects
@@ -13,13 +15,28 @@ those cases here:
 - ``tests/test_tts_frontend.py``: the English G2P cases and the Kokoro
   plain-text path (the G2P before the vocab map, the phoneme path, a tiny
   synthesis, the registry building G2P only with a vocab);
+- ``tests/test_pocket_tts.py``: the Pocket wrapper (incremental chunks,
+  stream against synthesize, a named voice, the chunked host path against
+  ``synthesize_utterance``), the handler (a synthesis, an unknown voice) and
+  the SentencePiece tokenizer;
+- ``tests/test_chattts.py``: the handler's synthesis and its speaker
+  redrawn at the end of a session;
+- ``tests/test_tts.py``: the Pocket and ChatTTS handlers through
+  ``process`` and the TTS registry's five families;
 - ``tests/test_whole_chain_speculation.py``: the Kokoro handler's
   side-thread speculation (adoption, mismatch, a failed speculation, the
   end of a response, the slot between pieces, the promoted lane).
 
 The other cases of those modules test code the port holds elsewhere (the
-qwen3 frontend, ``tests/test_torch_port_qwen3_tts.py``) or JAX-only
-classes.  A subset's module keeps the imports its definitions use.
+qwen3 frontend, ``tests/test_torch_port_qwen3_tts.py``; Mimi, the Pocket LM
+and ChatTTS's numerics against their torch twins,
+``tests/test_torch_port_{mimi,pocket,chattts}.py``) or stay JAX-only: the
+cases that call ``jax.random`` for a speaker (``test_chattts.py``'s
+``TestModelWrapper.test_stream_concat_equals_synthesize``), feed JAX arrays
+to the op (``test_tts.py``'s iSTFT cases) or load a checkpoint through the
+JAX converters by the JAX package's names (``test_chattts.py``'s
+``test_config_inferred_from_converted_params``).  A subset's module keeps
+the imports its definitions use.
 """
 
 import ast
@@ -32,6 +49,12 @@ TESTS = Path(__file__).resolve().parent
 #: JAX test module -> the definitions whose cases run against the port here
 SUBSETS = {
     "test_tts_frontend": ("TestEnglishG2P", "TestKokoroPlainTextPath"),
+    "test_pocket_tts": ("TestPocketWrapper", "TestPocketHandler", "TestTokenizer"),
+    "test_chattts": ("TestHandler",),
+    "test_tts": (
+        "tts_input", "test_pocket_handler_streams_through_real_model", "test_chattts_handler_random_speaker",
+        "test_all_tts_backends_registered",
+    ),
     "test_whole_chain_speculation": (
         "spec_text", "_kokoro_handler", "_wait_spec_done",
         "test_fallback_speculation_adopted_by_single_stream_backend",
