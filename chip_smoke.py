@@ -68,8 +68,9 @@ Phases, each printed on its own line:
 
 12. ``flash_attention`` against its plain version in bf16 at the distil-
    large-v3 encoder's shapes (20 heads of 64 x every Whisper duration
-   bucket, 50-1500 positions), at Smart Turn's (6 heads x 400) and one
-   causal shape, within 2 bf16 ulps of max|plain|, with device times of
+   bucket, 50-1500 positions), at Smart Turn's (6 heads x 400), one
+   causal shape and SigLIP's (12 heads x 1,024 patches), within 2 bf16
+   ulps of max|plain|, with device times of
    the kernel, the plain version and ``F.scaled_dot_product_attention``,
    the tensor-core kernel's tiles and stages, and a duplicated head that
    must come out bitwise equal to the head it copies;
@@ -167,11 +168,35 @@ Phases, each printed on its own line:
    (``ChatTTSConfig()``, f32), with the same gate; each served synthesis
    timed inside the model's ``stream``; profiles of ``SYNTH_TEXTS`` (and,
    for Pocket, ``TEXT`` through a random voice prefix of
-   ``POCKET_VOICE_ROWS`` rows): Pocket's 8-frame chunks split into frame
+   ``POCKET_VOICE_ROWS`` rows; ``PROFILED_TEXTS`` for both, ``TEXT`` alone
+   since the long text was cut): Pocket's 8-frame chunks split into frame
    generation and the Mimi re-decode, ChatTTS's synthesis into the prefill
-   with the AR loop and the DVAE with Vocos and the iSTFT.
+   with the AR loop and the DVAE with Vocos and the iSTFT;
+25. ``tiny_paraformer_parity``, ``tiny_vlm_parity`` and
+   ``tiny_deepfilter_parity`` (after phase 23): the converted fixtures
+   (``PARAFORMER_FIXTURE``, ``SMOLVLM_FIXTURE``, ``DEEPFILTER_FIXTURE``)
+   and weights from torch seeds on the card against the CPU: Paraformer's
+   token ids and counts equal (the fixture's on both), its encoder within
+   ``PARAFORMER_ENC_ATOL``, LFR + CMVN bit-equal; the tiny SigLIP tower and
+   the merged SmolVLM forward through ``prefill_embeds`` within
+   ``VISION_ATOL`` (its argmax the fixture's), the tiny VLM stage's greedy
+   text on a PNG equal; DeepFilter's frames and a 3 s ``DeepFilterConfig()``
+   enhancement within ``DEEPFILTER_REL`` x max|CPU|;
+26. ``paraformer_vlm_serve`` (after every other serve): the single-session
+   serve with ``--stt paraformer`` (Paraformer-large), ``--llm_backend
+   local-vlm`` (SmolLM2-1.7B behind ``VisionConfig()``), ``--tts
+   facebookMMS`` and ``--vad_enhancer_checkpoint`` (a ``DeepFilterConfig()``
+   tree from seed 0): a voice turn (a transcription; one log-mel launch per
+   Paraformer forward, one DeepFilter call per VAD final, finite and of the
+   same length), an image turn (one tower run and ``SIGLIP_LAYERS`` flash
+   launches per attempt, answered with audio; a failed image decode fails
+   the phase), a text turn with no tower run; then a Paraformer
+   forward's, the tower's and DeepFilter's device and wall times.
 
-Phases 3, 4, 8, 9, 10, 12, 13, 14, 21 and 23 run with TF32 off, so that f32
+After every serve a ``serve_memory`` line gives what stays allocated on the
+card once the phase has returned, before and after a garbage collection.
+
+Phases 3, 4, 8, 9, 10, 12, 13, 14, 21, 23 and 25 run with TF32 off, so that f32
 products are compared in full f32; the serves and phases 16-20 run with
 torch's defaults, as ``s2s_tpu_torch.cli`` does (cuDNN's convolutions, so
 Kokoro's and VITS's, in TF32).  A ``seconds`` line gives each
@@ -186,7 +211,9 @@ the deployment, Kokoro, MMS, Pocket and ChatTTS serves' as
 ``deployment_serve_launches``, ``kokoro_serve_launches``,
 ``mms_serve_launches``, ``pocket_serve_launches`` and
 ``chattts_serve_launches``; the log-mel's ``launches_by_caller`` counts
-those four TTS serves too); the last line is
+those four TTS serves and the Paraformer serve too, the flash kernel's the
+Whisper and the Paraformer/VLM serves, and its ``siglip`` entry SigLIP's
+shape); the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
 before those lines.
 """
@@ -197,13 +224,16 @@ import asyncio
 import base64
 import contextlib
 import dataclasses
+import gc
 import json
 import logging
 import math
+import struct
 import subprocess
 import sys
 import threading
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -252,9 +282,11 @@ VOICE_TONES_HZ = (440.0, 520.0, 260.0, 220.0)
 #: (1, 2, 3, 5, 8, 12, 15, 30 s -> 50-1500 positions), Smart Turn (Whisper
 #: tiny's 6 heads over its 8 s window), and one causal shape
 FLASH_SHAPES = ([("whisper-distil-large-v3", 20, t, False) for t in (50, 100, 150, 250, 400, 600, 750, 1500)]
-                + [("smart-turn", 6, 400, False), ("causal", 20, 1500, True)])
-#: the flash shape in the JSON line: Smart Turn, run at every soft end of speech
+                + [("smart-turn", 6, 400, False), ("causal", 20, 1500, True), ("siglip", 12, 1024, False)])
+#: the flash shape in the JSON line: Smart Turn, run at every soft end of speech;
+#: SigLIP's (12 heads of 64 over 1,024 patches) beside it
 FLASH_HEADLINE = ("smart-turn", 6, 400, False)
+FLASH_SIGLIP = ("siglip", 12, 1024, False)
 #: encoder layers, one flash launch each per encode
 WHISPER_LAYERS, SMART_TURN_LAYERS = 32, 4
 #: the log-mel shapes (seconds, mels); Smart Turn's 8 s x 80 stands in the JSON line
@@ -378,10 +410,48 @@ POCKET_VOICE_ROWS = 32
 #: re-decodes and ChatTTS's prefill, DVAE and Vocos are traced in full
 POCKET_TRACED_CHUNKS = 8
 CHATTTS_TRACED_STEPS = 180
+#: the texts of Pocket's and ChatTTS's profiled syntheses: ``TEXT`` alone
+#: (the long text's two syntheses a family took about 90 s of the run; PERF.md
+#: keeps their numbers)
+PROFILED_TEXTS = (TEXT,)
 #: the served TTS families: the phase name and the model's method each
 #: served synthesis goes through (timed; Pocket and ChatTTS stream)
 TTS_SERVES = {"kokoro": ("kokoro_serve", "synthesize"), "facebookMMS": ("mms_serve", "synthesize"),
               "pocket": ("pocket_serve", "stream"), "chatTTS": ("chattts_serve", "stream")}
+#: tiny Paraformer, SigLIP with the fixture's text model, and DeepFilter,
+#: each from its torch twin's (or transformers') fixture through the JAX
+#: converters, stored as converted checkpoints (``tests/test_torch_port_
+#: {paraformer,vision,deepfilter}.py`` hold each file equal to the
+#: converters' output)
+PARAFORMER_FIXTURE = "tests/data/paraformer_parity_converted.npz"
+SMOLVLM_FIXTURE = "tests/data/smolvlm_parity_converted.npz"
+DEEPFILTER_FIXTURE = "tests/data/deepfilter_parity_converted.npz"
+#: the SmolVLM fixture's text model (``tests/test_torch_parity.py``'s)
+SMOLVLM_LM = dict(vocab_size=128, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2, d_ff=128,
+                  max_seq_len=128, rope_theta=10000.0, rms_eps=1e-5, tie_embeddings=True)
+#: card against CPU, TF32 off, f32 on both sides: Paraformer's encoder
+#: output, the tiny tower's image features and the merged logits (the CPU
+#: tests' bound against the JAX package); DeepFilter's frames and waveform
+#: relative to max|CPU| (likewise)
+PARAFORMER_ENC_ATOL = 1e-5
+VISION_ATOL = 1e-5
+DEEPFILTER_REL = 1e-5
+#: the single-session serve with the backends ported last (before
+#: ``tts_flags(..., "facebookMMS")`` and the enhancer's checkpoint):
+#: Paraformer-large, SmolLM2-1.7B behind SmolVLM's SigLIP tower
+#: (``VisionConfig()``), MMS/VITS for the replies (the ``serve`` phase drives
+#: Qwen3-TTS), and DeepFilter on every VAD-final segment
+PARAFORMER_VLM_FLAGS = _with(FULL_FLAGS, stt="paraformer", llm_backend="local-vlm")
+#: SigLIP's encoder layers: one flash launch each an image
+SIGLIP_LAYERS = 12
+#: the image sent with the serve's second turn (a PNG this script writes)
+IMAGE_SIDE = 96
+#: the serve's image turns and text turns, tried in order until one is
+#: answered with audio (as ``VOICE_TONES_HZ``: a random-init reply may have
+#: nothing to speak); each image attempt must run the tower once
+IMAGE_PROMPTS = [("What is in this picture?", "red"), ("Describe the image.", "green"),
+                 ("What colors do you see?", "blue"), ("Tell me about this photo.", "red")]
+TEXT_PROMPTS = [TEXT, "Tell me a story about the sea.", "How are you today?"]
 L2_BYTES = 50 << 20
 #: H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, dense bf16 FLOP/s, dense int8 OP/s
 HBM_BPS = 3.35e12
@@ -426,6 +496,29 @@ def gemv_bound(b: int, k: int, n: int, weight_bytes: float, peak_ops: float) -> 
     """The bound of one decode-shaped linear: the weight, x (bf16), the
     scale (f32) and the output (bf16) each moved once; 2*B*K*N operations."""
     return bound(weight_bytes + b * k * 2 + n * 4 + b * n * 2, 2 * b * k * n, peak_ops)
+
+
+def flat_tree(tree, prefix: str = "") -> dict[str, np.ndarray]:
+    """A nested dict/list of tensors or arrays as a converted checkpoint's
+    ``.npz`` entries: ``"a/b/0/c"`` -> a numpy array (what
+    ``s2s_tpu_torch.registry.unflatten_params`` reads back)."""
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items() for k, v in flat_tree(sub, f"{prefix}{key}/").items()}
+    if isinstance(tree, (list, tuple)):
+        return {k: v for i, sub in enumerate(tree) for k, v in flat_tree(sub, f"{prefix}{i}/").items()}
+    return {prefix[:-1]: tree.detach().cpu().numpy() if isinstance(tree, torch.Tensor) else np.asarray(tree)}
+
+
+def png_bytes(rgb: np.ndarray) -> bytes:
+    """An (H, W, 3) uint8 image as a PNG: 8-bit RGB, every row filter type 0."""
+    h, w, _ = rgb.shape
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", zlib.crc32(kind + data))
+
+    rows = b"".join(b"\x00" + rgb[y].tobytes() for y in range(h))
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows)) + chunk(b"IEND", b""))
 
 
 def device_ms(fn, calls: int) -> float:
@@ -1386,7 +1479,7 @@ def flash_attention_phase(dev: torch.device) -> dict:
     from s2s_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device=dev).manual_seed(9)
-    rows, max_err, headline, d, calls = [], 0.0, None, 64, 20
+    rows, max_err, headline, siglip, d, calls = [], 0.0, None, None, 64, 20
     for name, h, t, causal in FLASH_SHAPES:
         q, k, v = (torch.randn(1, t, h, d, generator=gen, device=dev).to(torch.bfloat16).transpose(1, 2)
                    for _ in range(3))
@@ -1424,9 +1517,12 @@ def flash_attention_phase(dev: torch.device) -> dict:
         rows.append(row)
         if (name, h, t, causal) == FLASH_HEADLINE:
             headline = row
-    check(headline is not None, "flash_attention headline shape measured")
-    return {"max_abs_err": max_err, **{key: headline[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                                       "library_ms")}}
+        if (name, h, t, causal) == FLASH_SIGLIP:
+            siglip = row
+    check(headline is not None and siglip is not None, "flash_attention headline and SigLIP shapes measured")
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return {"max_abs_err": max_err, **{key: headline[key] for key in keys},
+            "siglip": {key: siglip[key] for key in ("H", "T", "D", "max_abs_err", *keys)}}
 
 
 def _speech_like(n: int, gen: torch.Generator, dev) -> torch.Tensor:
@@ -2377,23 +2473,34 @@ def tiny_chattts_parity_phase(dev: torch.device) -> None:
           bounds={"mel_atol": CHATTTS_MEL_ATOL, "wav_rel": TTS_WAV_REL})
 
 
-def _device_activity(fn):
-    """(result, device busy ms, kernels, copies and memsets) of ``fn()`` under
-    ``torch.profiler`` (device activity only)."""
+def _device_events(fn):
+    """(result, device events) of ``fn()`` under ``torch.profiler`` (device
+    activity only)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         result = fn()
         torch.cuda.synchronize()
-    device = [e for e in prof.profiler.kineto_results.events() if e.device_type() == torch.autograd.DeviceType.CUDA]
-    copies = sum(1 for e in device if e.name().startswith(("Memcpy", "Memset")))
+    return result, [e for e in prof.profiler.kineto_results.events()
+                    if e.device_type() == torch.autograd.DeviceType.CUDA]
+
+
+def _busy_ms(device) -> float:
+    """The union of the events' spans, in ms."""
     spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns()) for e in device)
     busy_ns, end = 0, spans[0][0] if spans else 0
     for start, stop in spans:
         busy_ns += max(0, stop - max(start, end))
         end = max(end, stop)
-    return result, busy_ns / 1e6, len(device) - copies, copies
+    return busy_ns / 1e6
+
+
+def _device_activity(fn):
+    """(result, device busy ms, kernels, copies and memsets) of ``fn()``."""
+    result, device = _device_events(fn)
+    copies = sum(1 for e in device if e.name().startswith(("Memcpy", "Memset")))
+    return result, _busy_ms(device), len(device) - copies, copies
 
 
 def _synthesis_profile(model) -> list[dict]:
@@ -2498,7 +2605,7 @@ def _timed_synthesis(fn) -> tuple[np.ndarray, float, int, int]:
 
 
 def _pocket_profile(model) -> list[dict]:
-    """One Pocket synthesis of each of ``SYNTH_TEXTS`` and one of ``TEXT``
+    """One Pocket synthesis of each of ``PROFILED_TEXTS`` and one of ``TEXT``
     through a random voice prefix of ``POCKET_VOICE_ROWS`` rows (added with
     ``add_voice``) on the served model: wall time and peak allocation, then
     under ``torch.profiler`` the frame generation of the first
@@ -2510,7 +2617,7 @@ def _pocket_profile(model) -> list[dict]:
     voice = np.random.default_rng(0).normal(0, 0.3, (POCKET_VOICE_ROWS, model.cfg.backbone.d_model))
     model.add_voice("profiled", voice)
     rows = []
-    for text, voice_name in [*((t, None) for t in SYNTH_TEXTS.values()), (TEXT, "profiled")]:
+    for text, voice_name in [*((t, None) for t in PROFILED_TEXTS), (TEXT, "profiled")]:
         audio, wall, peak, base = _timed_synthesis(lambda: model.synthesize(text, voice=voice_name))
         frames, decodes = [], []
         t0 = time.perf_counter()
@@ -2534,7 +2641,7 @@ def _pocket_profile(model) -> list[dict]:
 
 
 def _chattts_profile(model) -> list[dict]:
-    """One ChatTTS synthesis of each of ``SYNTH_TEXTS`` (speaker seed 0) on
+    """One ChatTTS synthesis of each of ``PROFILED_TEXTS`` (speaker seed 0) on
     the served model: wall time and peak allocation, then under
     ``torch.profiler`` the prefill with the AR loop's first
     ``CHATTTS_TRACED_STEPS`` steps (the loop split there; the rest runs
@@ -2544,7 +2651,7 @@ def _chattts_profile(model) -> list[dict]:
 
     real_codes = chattts.generate_codes
     rows = []
-    for text in SYNTH_TEXTS.values():
+    for text in PROFILED_TEXTS:
         audio, wall, peak, base = _timed_synthesis(lambda: model.synthesize(text, seed=0))
         pre, loop, vocoder = [], [], []
 
@@ -2732,6 +2839,377 @@ def tts_serve_phase(dev: torch.device, card: list[str], tts: str) -> dict[str, i
     return launches
 
 
+def merged_logits(vision_params, lm_params, pixels_nchw: torch.Tensor, ids: torch.Tensor):
+    """The SmolVLM fixture's merged forward on the port: the tiny tower's
+    features spliced at the image-token span (id 127), then each prefix
+    length's last hidden through ``prefill_embeds`` and the tied head.
+    Returns (image features (1, 4, 64), logits (T, V))."""
+    from s2s_tpu_torch.models import decoder_lm, vision
+
+    cfg = decoder_lm.DecoderLMConfig(**SMOLVLM_LM, dtype=torch.float32)
+    feats = vision.encode_image(vision_params, vision.VisionConfig.test_tiny(), pixels_nchw.permute(0, 2, 3, 1))
+    embeds = lm_params["embed"][ids[0].long()][None].clone()
+    embeds[0, ids[0] == 127] = feats[0]
+    rows = []
+    for k in range(1, ids.shape[1] + 1):
+        state = decoder_lm.init_decode_state(cfg, 1, max_t=ids.shape[1], device=embeds.device)
+        hidden, _ = decoder_lm.prefill_embeds(lm_params, cfg, embeds[:, :k], state, k)
+        rows.append(hidden[0] @ lm_params["embed"].T)
+    return feats, torch.stack(rows)
+
+
+def image_url(side: int = IMAGE_SIDE, color: str = "red") -> str:
+    """A ``data:`` URL of a PNG written here: a checkerboard of *color*
+    ("red", "green" or "blue") over a gradient."""
+    y, x = np.mgrid[:side, :side]
+    rgb = np.stack([x * 255 // side, y * 255 // side, (x + y) * 127 // side], axis=-1).astype(np.uint8)
+    rgb[(x // 12 + y // 12) % 2 == 1, ("red", "green", "blue").index(color)] = 230
+    return "data:image/png;base64," + base64.b64encode(png_bytes(rgb)).decode()
+
+
+def tiny_paraformer_parity_phase(dev: torch.device) -> None:
+    """Tiny Paraformer on the card against the same code on the CPU: the
+    FunASR twin's converted weights (``PARAFORMER_FIXTURE``) give the
+    fixture's token count and ids on both, the encoder output within
+    ``PARAFORMER_ENC_ATOL``; random weights (a torch seed) give equal ids
+    and counts at three valid lengths in the padded bucket; LFR + CMVN
+    bit-equal."""
+    from s2s_tpu_torch import weights
+    from s2s_tpu_torch.models import paraformer
+
+    tree, fx = _fixture(PARAFORMER_FIXTURE)
+    cfg = paraformer.ParaformerConfig.test_tiny()
+    drawn = paraformer.init_params(cfg, torch.Generator().manual_seed(5))
+    rng = np.random.default_rng(5)
+    feats = rng.standard_normal((1, cfg.max_frames, cfg.input_size)).astype(np.float32)
+    fbank = rng.standard_normal((301, 80)).astype(np.float32)
+    t = fx["feats"].shape[1]
+    buf = np.zeros((1, cfg.max_frames, cfg.input_size), np.float32)
+    buf[0, :t] = fx["feats"][0]
+
+    def run(device) -> dict:
+        p, q = weights.paraformer_params(tree, device), weights.tree_to_torch(drawn, device)
+        out = {"enc": paraformer.encode(p, cfg, torch.from_numpy(fx["feats"]).to(device),
+                                        torch.ones((1, t, 1), device=device)).cpu().numpy()}
+        for name, params, x, lengths in (("fixture", p, buf, (t,)), ("drawn", q, feats, (7, 20, 32))):
+            for n in lengths:
+                ids, count = paraformer.forward(params, cfg, torch.from_numpy(x).to(device),
+                                                torch.tensor([n], dtype=torch.int32, device=device))
+                out[f"{name}_{n}"] = (ids.cpu().numpy(), int(count[0]))
+        out["lfr"] = paraformer.lfr_cmvn(*(torch.from_numpy(a).to(device) for a in (
+            fbank, fx["feats"][0, 0].repeat(20), np.ones(560, np.float32)))).cpu().numpy()
+        return out
+
+    cpu, card = run("cpu"), run(dev)
+    n_ref = fx["acoustic"].shape[1]
+    want = np.argmax(fx["logits"], -1)[0]
+    for side, out in (("cpu", cpu), ("cuda", card)):
+        ids, n = out[f"fixture_{t}"]
+        check(n == n_ref and np.array_equal(ids[0, :n], want), f"tiny paraformer {side}: the fixture's {n_ref} ids")
+    same = {k: bool(np.array_equal(cpu[k][0], card[k][0]) and cpu[k][1] == card[k][1])
+            for k in cpu if k.startswith(("fixture", "drawn"))}
+    enc_err = float(np.abs(cpu["enc"] - card["enc"]).max())
+    check(all(same.values()), f"tiny paraformer ids and counts cuda vs cpu {same}")
+    check(enc_err <= PARAFORMER_ENC_ATOL, f"tiny paraformer encoder cuda vs cpu {enc_err}")
+    check(np.array_equal(cpu["lfr"], card["lfr"]), "LFR + CMVN cuda vs cpu bit-equal")
+    phase("tiny_paraformer_parity", fixture_tokens=n_ref, counts={k: card[k][1] for k in same},
+          enc_max_abs_err=enc_err, bound=PARAFORMER_ENC_ATOL)
+
+
+def tiny_vlm_parity_phase(dev: torch.device) -> None:
+    """The tiny SigLIP tower and the VLM stage on the card against the CPU:
+    transformers' SmolVLM fixture through the JAX converters
+    (``SMOLVLM_FIXTURE``): image features within ``VISION_ATOL`` of the CPU
+    (and the JAX package's 2e-4 of transformers'), the merged forward's
+    logits within ``VISION_ATOL`` of the CPU with its argmax; then the
+    stage (``VisionLocalTorchLLMHandler`` at the tiny LM and tower, random
+    weights from a torch seed) on a PNG data URL: the same greedy text on
+    both devices."""
+    import threading
+    from queue import Queue
+
+    from s2s_tpu_torch import weights
+    from s2s_tpu_torch.llm.vlm_backend import VisionLocalTorchLLMHandler
+    from s2s_tpu_torch.models import decoder_lm, vision
+    from s2s_tpu_torch.registry import _load_checkpoint
+
+    loaded = _load_checkpoint(SMOLVLM_FIXTURE)
+    fx = {k: np.asarray(v) for k, v in loaded["fx"].items()}
+    vcfg, lcfg = vision.VisionConfig.test_tiny(), decoder_lm.DecoderLMConfig.tiny()
+    drawn_lm = decoder_lm.init_params(lcfg, torch.Generator().manual_seed(4))
+    drawn_tower = vision.init_params(vcfg, torch.Generator().manual_seed(1))
+    chat = [{"role": "user", "content": [{"type": "input_text", "text": "what is in this image"},
+                                         {"type": "input_image", "image_url": image_url(32)}]}]
+
+    def run(device) -> dict:
+        feats, logits = merged_logits(weights.vision_params(loaded["vision"], device),
+                                      weights.tree_to_torch(loaded["lm"], device),
+                                      torch.from_numpy(fx["pixels"]).to(device), torch.from_numpy(fx["ids"]).to(device))
+        handler = VisionLocalTorchLLMHandler(threading.Event(), Queue(), Queue(), setup_kwargs=dict(
+            device=device, model_size="tiny", max_new_tokens=12, params=weights.tree_to_torch(drawn_lm, device),
+            vision_config=vcfg, vision_params=weights.tree_to_torch(drawn_tower, device)))
+        return {"feats": feats.cpu().numpy(), "logits": logits.cpu().numpy(), "text": list(handler._jax_generate(chat))}
+
+    cpu, card = run("cpu"), run(dev)
+    errs = {k: float(np.abs(cpu[k] - card[k]).max()) for k in ("feats", "logits")}
+    check(float(np.abs(cpu["feats"] - fx["img_feats"]).max()) <= 2e-4, "tiny tower on the CPU vs the fixture")
+    check(max(errs.values()) <= VISION_ATOL, f"tiny tower and merged logits cuda vs cpu {errs}")
+    check(np.array_equal(np.argmax(card["logits"], -1), np.argmax(fx["logits"][0], -1)), "merged argmax")
+    check(card["text"] == cpu["text"] and cpu["text"], f"tiny VLM stage text cuda vs cpu {card['text']} {cpu['text']}")
+    phase("tiny_vlm_parity", max_abs_err=errs, bound=VISION_ATOL, stage_pieces=len(card["text"]))
+
+
+def tiny_deepfilter_parity_phase(dev: torch.device) -> None:
+    """DeepFilter on the card against the CPU: the DFN twin's converted
+    weights (``DEEPFILTER_FIXTURE``, tiny) through ``filter_frames``, the
+    frames within ``DEEPFILTER_REL`` x max|CPU| (and the JAX package's 2e-5
+    of the twin's); then ``DeepFilterConfig()`` drawn from a torch seed:
+    ``enhance`` of 3 s of speech-like audio likewise, the same length."""
+    from s2s_tpu_torch import weights
+    from s2s_tpu_torch.models import deepfilter
+
+    tree, fx = _fixture(DEEPFILTER_FIXTURE)
+    tiny, full = deepfilter.DeepFilterConfig.tiny(), deepfilter.DeepFilterConfig()
+    drawn = deepfilter.init_params(full, torch.Generator().manual_seed(0))
+    spec = torch.from_numpy((fx["spec_re"] + 1j * fx["spec_im"]).astype(np.complex64))
+    audio = _speech_like(48_000, torch.Generator().manual_seed(3), "cpu")
+
+    def run(device) -> dict:
+        frames, _ = deepfilter.filter_frames(weights.deepfilter_params(tree, device), tiny, spec.to(device),
+                                             deepfilter.init_state(tiny, device))
+        wav = deepfilter.enhance(weights.tree_to_torch(drawn, device), full, audio.to(device))
+        return {"frames": frames.cpu().numpy(), "wav": wav.cpu().numpy()}
+
+    cpu, card = run("cpu"), run(dev)
+    rel = {k: float(np.abs(cpu[k] - card[k]).max() / np.abs(cpu[k]).max()) for k in cpu}
+    twin = float(np.abs(cpu["frames"] - (fx["out_re"] + 1j * fx["out_im"])).max())
+    check(twin <= 2e-5, f"tiny deepfilter on the CPU vs the twin {twin}")
+    check(card["wav"].shape == audio.shape and np.isfinite(card["wav"]).all(), "deepfilter keeps the length")
+    check(max(rel.values()) <= DEEPFILTER_REL, f"deepfilter cuda vs cpu {rel}")
+    phase("tiny_deepfilter_parity", max_abs_err_rel=rel, bound_rel=DEEPFILTER_REL, twin_max_abs_err=twin)
+
+
+def _wall_ms(fn, reps: int = 3) -> float:
+    """Wall time of ``fn()`` to its last kernel, the least of *reps* runs."""
+    best = math.inf
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return best * 1e3
+
+
+def _image_turn(prompt: str, color: str):
+    return [(0, {"type": "conversation.item.create", "item": {
+        "type": "message", "role": "user", "content": [
+            {"type": "input_text", "text": prompt}, {"type": "input_image", "image_url": image_url(color=color)}]}}),
+        (0, {"type": "response.create", "response": {}})]
+
+
+def _reply_text(events) -> str:
+    return "".join(e.get("delta", "") for _, e in events
+                   if e["type"] in ("response.output_audio_transcript.delta", "response.output_text.delta"))
+
+
+def _answered_turn(url: str, turns, counts) -> tuple[list | None, list[dict]]:
+    """Text turns (label, actions), each its own session, in order until one
+    is answered with audio: (that turn's events or None, one summary an
+    attempt with its launches, ``counts()`` read and cleared after it).  A
+    random-init reply may be unspeakable (bytes that decode to no letter, so
+    the TTS has nothing to say)."""
+    attempts = []
+    for label, actions in turns:
+        events = asyncio.run(_session(url, actions, _response_done, 600))
+        replied = "response.output_audio.delta" in _types(events)
+        attempts.append({"turn": label, "replied": replied, "reply": _reply_text(events)[:60], "counts": counts()})
+        if replied:
+            return events, attempts
+    return None, attempts
+
+
+def paraformer_vlm_serve_phase(dev: torch.device, card: list[str]) -> dict[str, int]:
+    """The single-session serve with Paraformer, the VLM stage and DeepFilter
+    (``PARAFORMER_VLM_FLAGS`` with ``--tts facebookMMS`` and
+    ``--vad_enhancer_checkpoint``: a ``DeepFilterConfig()`` tree drawn from
+    seed 0 written to a temporary ``.npz``): build, every count set to 0,
+    then three turns over a real WebSocket, their launches counted turn by
+    turn:
+
+    1. a voice turn: a transcription event (a reply, where the random LM
+       gives one, is read as far as its first audio); one log-mel launch per
+       Paraformer forward (> 0); one DeepFilter call per VAD final (> 0),
+       each giving finite audio of its input's length;
+    2. a text turn with one ``input_image`` (``image_url``, a PNG written
+       here, which the port decodes with PIL; ``IMAGE_PROMPTS`` in turn
+       until one is answered): audio deltas and ``response.done``; each
+       attempt runs the tower once and the flash kernel ``SIGLIP_LAYERS``
+       times; a logged "Failed to decode input_image" fails the phase;
+    3. a text turn without an image (``TEXT_PROMPTS`` likewise): answered,
+       and no tower run.
+
+    Then, on the served models: one Paraformer forward's device time,
+    kernels and wall time at a 3 s window; the tower's device time and the
+    flash kernel's share of it; DeepFilter's device and wall time per
+    second of audio (3 s).  ``torch.cuda.memory_allocated()`` before the
+    build, after shutdown (this phase's references dropped) and after a
+    garbage collection.  Returns the kernels' launches over the turns."""
+    import shutil
+    import tempfile
+
+    import PIL  # the served path decodes input_image data URLs with it
+
+    from s2s_tpu_torch import cli
+    from s2s_tpu_torch.llm.utils import image_url_to_pil
+    from s2s_tpu_torch.llm.vlm_backend import VisionLocalTorchLLMHandler
+    from s2s_tpu_torch.models import deepfilter, paraformer, vision
+    from s2s_tpu_torch.pipeline.messages import VADAudio
+    from s2s_tpu_torch.registry import GLOBAL_MODEL_CACHE
+    from s2s_tpu_torch.stt.paraformer_handler import ParaformerSTTHandler
+    from s2s_tpu_torch.vad.handler import VADHandler
+
+    counters = _launch_counters()
+    seen = {"forwards": 0, "encodes": 0, "finals": 0, "enhances": 0, "enhanced": []}
+    real_forward, real_encode = paraformer.forward, vision.encode_image
+    real_enhance, real_process = deepfilter.DeepFilterEnhancer.__call__, VADHandler.process
+
+    def counted_forward(*args, **kwargs):
+        seen["forwards"] += 1
+        return real_forward(*args, **kwargs)
+
+    def counted_encode(*args, **kwargs):
+        seen["encodes"] += 1
+        return real_encode(*args, **kwargs)
+
+    def counted_enhance(self, audio):
+        out = real_enhance(self, audio)
+        seen["enhances"] += 1
+        seen["enhanced"].append((audio.size, out.size, bool(np.isfinite(out).all())))
+        return out
+
+    def counted_process(self, item):
+        for out in real_process(self, item):
+            if isinstance(out, VADAudio) and out.mode == "final":
+                seen["finals"] += 1
+            yield out
+
+    def turn_counts() -> dict:
+        torch.cuda.synchronize()
+        counts = {name: fn.launches for name, fn in counters.items()}
+        counts.update(forwards=seen["forwards"], encodes=seen["encodes"], finals=seen["finals"],
+                      enhancer_calls=seen["enhances"])
+        for fn in counters.values():
+            fn.launches = 0
+        seen.update(forwards=0, encodes=0, finals=0, enhances=0)
+        return counts
+
+    lines = _Lines()
+    vlm_log = logging.getLogger("s2s_tpu_torch.llm.vlm_backend")
+    vlm_log.addHandler(lines)
+    paraformer.forward, vision.encode_image = counted_forward, counted_encode
+    deepfilter.DeepFilterEnhancer.__call__, VADHandler.process = counted_enhance, counted_process
+    stop = threading.Event()
+    memory = {"before_build": torch.cuda.memory_allocated()}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_deepfilter_")
+    try:
+        checkpoint = f"{tmp}/deepfilter.npz"
+        np.savez(checkpoint, **flat_tree(deepfilter.init_params(deepfilter.DeepFilterConfig(),
+                                                                torch.Generator().manual_seed(0))))
+        flags = tts_flags(PARAFORMER_VLM_FLAGS, "facebookMMS") + ["--vad_enhancer_checkpoint", checkpoint]
+        t0 = time.perf_counter()
+        manager, server, _ = cli.build_from_argv(["--device", "cuda", *flags], stop)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        manager.start()
+        try:
+            check(server.started.wait(60), "server started")
+            url = f"ws://127.0.0.1:{server.bound_port}/v1/realtime"
+            turn_counts()  # the build's warm-up transcription is not counted
+            seen["enhanced"].clear()
+            lines.records.clear()
+            voice = asyncio.run(_session(url, _audio_turn(), _reply_or_quiet, 300))
+            voice_counts, enhanced = turn_counts(), list(seen["enhanced"])
+            image, image_attempts = _answered_turn(url, [
+                (f"{prompt} ({color})", _image_turn(prompt, color)) for prompt, color in IMAGE_PROMPTS], turn_counts)
+            text, text_attempts = _answered_turn(url, [(t, _text_turn(t)) for t in TEXT_PROMPTS], turn_counts)
+            failed = [r.getMessage() for r in lines.records if "Failed to decode input_image" in r.getMessage()]
+
+            stt = next(h for h in manager.handlers if isinstance(h, ParaformerSTTHandler))
+            llm = next(h for h in manager.handlers if isinstance(h, VisionLocalTorchLLMHandler))
+            vad = next(h for h in manager.handlers if isinstance(h, VADHandler))
+            pcfg, pparams = stt._paraformer_cfg, stt._paraformer_params
+            feats = torch.randn(1, pcfg.max_frames, pcfg.input_size, generator=torch.Generator().manual_seed(2))
+            feats, n_valid = feats.to(dev), torch.tensor([50], dtype=torch.int32, device=dev)
+            _, fwd_ms, fwd_kernels, fwd_copies = _device_activity(lambda: real_forward(pparams, pcfg, feats, n_valid))
+            fwd_wall = _wall_ms(lambda: real_forward(pparams, pcfg, feats, n_valid))
+            pixels = torch.from_numpy(vision.preprocess_image(image_url_to_pil(image_url()),
+                                                           llm.vision_cfg.image_size))
+            pixels = pixels.to(dev)
+            _, tower_events = _device_events(lambda: real_encode(llm.vision_params, llm.vision_cfg, pixels))
+            tower_wall = _wall_ms(lambda: real_encode(llm.vision_params, llm.vision_cfg, pixels))
+            audio = _speech_like(48_000, torch.Generator().manual_seed(4), "cpu").numpy()
+            _, df_ms, df_kernels, _ = _device_activity(lambda: real_enhance(vad.enhancer, audio))
+            df_wall = _wall_ms(lambda: real_enhance(vad.enhancer, audio))
+        finally:
+            stop.set()
+            manager.stop()
+            GLOBAL_MODEL_CACHE.clear()
+        n_patches = llm.vision_cfg.n_patches
+        del manager, server, stt, llm, vad, pparams  # what this phase holds of the serve
+        torch.cuda.synchronize()
+        memory["after_shutdown"] = torch.cuda.memory_allocated()
+        gc.collect()
+        memory["after_gc"] = torch.cuda.memory_allocated()
+    finally:
+        paraformer.forward, vision.encode_image = real_forward, real_encode
+        deepfilter.DeepFilterEnhancer.__call__, VADHandler.process = real_enhance, real_process
+        vlm_log.removeHandler(lines)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    transcripts = _transcripts(voice)
+    check(len(transcripts) >= 1, f"voice turn: a transcription event {_types(voice)}")
+    summary = {"transcript": transcripts[0][1][:80], "transcription_s": transcripts[0][0],
+               "replied": "response.output_audio.delta" in _types(voice)}
+    if summary["replied"]:
+        summary["first_audio_s"] = _first_audio_s(voice)
+    check(voice_counts["log_mel"] > 0 and voice_counts["log_mel"] == voice_counts["forwards"],
+          f"voice turn: one log-mel launch per Paraformer forward (> 0): {voice_counts}")
+    check(voice_counts["finals"] > 0 and voice_counts["enhancer_calls"] == voice_counts["finals"],
+          f"voice turn: one DeepFilter call per VAD final (> 0): {voice_counts}")
+    check(all(n_in == n_out and finite for n_in, n_out, finite in enhanced), f"DeepFilter outputs {enhanced}")
+    check(not failed, f"the image was decoded: {failed}")
+    for a in image_attempts:
+        check(a["counts"]["encodes"] == 1 and a["counts"]["flash_attention"] == SIGLIP_LAYERS,
+              f"image turn: one tower run, {SIGLIP_LAYERS} flash launches a run: {a}")
+    for a in text_attempts:
+        check(a["counts"]["encodes"] == 0 and a["counts"]["flash_attention"] == 0, f"text turn ran no tower {a}")
+    check(image is not None and text is not None,
+          f"an image turn and a text turn answered with audio: {image_attempts} {text_attempts}")
+    image_pcm, image_done = _reply(image, "image turn")
+    text_pcm, text_done = _reply(text, "text turn")
+    tower_ms, by_kernel = _busy_ms(tower_events), {}
+    for e in tower_events:
+        by_kernel[e.name()[:60]] = by_kernel.get(e.name()[:60], 0.0) + e.duration_ns() / 1e6
+    flash_ms = sum(ms for name, ms in by_kernel.items() if "flash_attention" in name)
+    launches = {k: voice_counts[k] + sum(a["counts"][k] for a in image_attempts + text_attempts) for k in counters}
+    phase("paraformer_vlm_serve", card=card, flags=flags[flags.index("--stt"):], image_decoder=f"PIL {PIL.__version__}",
+          build_s=build_s, voice_turn=summary, transcriptions=voice_counts["forwards"],
+          vad_finals=voice_counts["finals"], enhanced_samples=[e[0] for e in enhanced],
+          image_turn={"ttfa_s": _first_audio_s(image), "done_s": image_done, "audio_seconds": image_pcm.size / 24_000},
+          text_turn={"ttfa_s": _first_audio_s(text), "done_s": text_done, "audio_seconds": text_pcm.size / 24_000},
+          voice_launches=voice_counts, image_attempts=image_attempts, text_attempts=text_attempts,
+          paraformer_forward={"frames": pcfg.max_frames, "valid_frames": 50, "device_ms": fwd_ms,
+                              "kernels": fwd_kernels, "copies": fwd_copies, "wall_ms": fwd_wall},
+          tower={"patches": n_patches, "device_ms": tower_ms, "flash_ms": flash_ms,
+                 "flash_share": flash_ms / tower_ms if tower_ms else None, "wall_ms": tower_wall,
+                 "kernels": dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6])},
+          deepfilter={"audio_seconds": audio.size / 16_000, "device_ms_per_audio_s": df_ms / 3,
+                      "wall_ms_per_audio_s": df_wall / 3, "kernels": df_kernels},
+          memory_allocated=memory)
+    return launches
+
+
 def _first_audio_s(events) -> float:
     return next(t for t, e in events if e["type"] == "response.output_audio.delta")
 
@@ -2763,11 +3241,18 @@ def main() -> int:
     seconds: dict[str, float] = {}
 
     def run(name: str, fn, *args, tf32: bool = True):
-        """Run one phase (with TF32 off unless *tf32*), keeping its seconds."""
+        """Run one phase (with TF32 off unless *tf32*), keeping its seconds;
+        after a serve, what stays allocated on the card (before and after a
+        garbage collection)."""
         t0 = time.perf_counter()
         with contextlib.nullcontext() if tf32 else tf32_mode(False):
             result = fn(*args)
         seconds[name] = time.perf_counter() - t0
+        if name.endswith("serve"):
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            gc.collect()
+            phase("serve_memory", serve=name, allocated_bytes=held, after_gc_bytes=torch.cuda.memory_allocated())
         return result
 
     t0 = time.perf_counter()
@@ -2782,6 +3267,9 @@ def main() -> int:
     run("tiny_vits_parity", tiny_vits_parity_phase, dev, tf32=False)
     run("tiny_pocket_parity", tiny_pocket_parity_phase, dev, tf32=False)
     run("tiny_chattts_parity", tiny_chattts_parity_phase, dev, tf32=False)
+    run("tiny_paraformer_parity", tiny_paraformer_parity_phase, dev, tf32=False)
+    run("tiny_vlm_parity", tiny_vlm_parity_phase, dev, tf32=False)
+    run("tiny_deepfilter_parity", tiny_deepfilter_parity_phase, dev, tf32=False)
     # under torch's defaults, as the serve runs it; before any other profiler session in this process (a
     # profiler started after the traced round's dropped some or all of a tick's device events on an H100)
     run("silero", silero_phase, dev, smi)
@@ -2803,12 +3291,17 @@ def main() -> int:
     run("head_logits", head_logits_phase, dev, smi)
     run("resample", resample_phase, dev)
     deployment = run("deployment_serve", deployment_serve_phase, dev, smi)
+    # the backends ported last, after every other serve, under torch's defaults
+    vlm = run("paraformer_vlm_serve", paraformer_vlm_serve_phase, dev, smi)
     phase("seconds", **seconds)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     mel_launches = {"whisper_serve": whisper_launches["log_mel"], "serve": single["parakeet_log_mel"],
                     "batched_serve": launches["parakeet_log_mel"],
-                    **{TTS_SERVES[t][0]: tts[t]["parakeet_log_mel"] for t in TTS_SERVES}}
+                    **{TTS_SERVES[t][0]: tts[t]["parakeet_log_mel"] for t in TTS_SERVES},
+                    "paraformer_vlm_serve": vlm["log_mel"]}
+    flash_launches = {"whisper_serve": whisper_launches["flash_attention"],
+                      "paraformer_vlm_serve": vlm["flash_attention"]}
     tts_serves = {name: {f"{TTS_SERVES[t][0]}_launches": tts[t][name] for t in TTS_SERVES}
                   for name in ("int8_matmul", "decode_attention")}
     print(smi[0])
@@ -2827,10 +3320,11 @@ def main() -> int:
         {"name": "int4_matmul", "route": "cuda", "source": "s2s_tpu_torch/csrc/int4_matmul.cu",
          "replaces": "s2s_tpu/ops/int4_matmul.py:74", "launches": quant_launches["int4_matmul"],
          **{k: int4[k] for k in keys}},
+        # both callers: the Whisper and Smart Turn encoders, SigLIP's tower
         {"name": "flash_attention", "route": "cuda", "source": "s2s_tpu_torch/csrc/flash_attention.cu",
-         "replaces": "s2s_tpu/ops/pallas_attention.py:68", "launches": whisper_launches["flash_attention"],
-         **{k: flash[k] for k in keys}},
-        # both callers: the Whisper cell's log-mels, the Parakeet cells' frontends
+         "replaces": "s2s_tpu/ops/pallas_attention.py:68", "launches": sum(flash_launches.values()),
+         "launches_by_caller": flash_launches, **{k: flash[k] for k in keys}, "siglip": flash["siglip"]},
+        # its callers: the Whisper cell's and Paraformer's log-mels, the Parakeet cells' frontends
         {"name": "log_mel", "route": "cuda", "source": "s2s_tpu_torch/csrc/log_mel.cu",
          "replaces": "s2s_tpu/ops/pallas_mel.py:73", "launches": sum(mel_launches.values()),
          "launches_by_caller": mel_launches, **{k: logmel[k] for k in keys},

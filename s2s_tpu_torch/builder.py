@@ -7,8 +7,9 @@ the port's registry.  ``--num_pipelines N`` builds N units
 behind one server; the registry shares one weight set and one batched engine
 per model among them, and with Silero one batched VAD serves every unit's
 ticks.  ``--profile_dir`` adds a ``torch.profiler`` trace for the life of
-the serve.  Options that need an unported piece raise at build time and
-name their ROADMAP item.
+the serve; ``--vad_enhancer_checkpoint`` adds DeepFilter on every unit's
+VAD-final audio.  ``--model_parallel`` above 1 (not ported) raises at build
+time and names its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -40,8 +41,6 @@ logger = logging.getLogger(__name__)
 
 def check_supported(args: ParsedArguments) -> None:
     """Raise for every option whose device code is not ported yet."""
-    if args.vad.enhancer_checkpoint:
-        raise NotImplementedError("--vad_enhancer_checkpoint: DeepFilter is ROADMAP queue 1 item 7")
     if args.module.model_parallel > 1:
         raise NotImplementedError("--model_parallel: tensor-parallel serving is ROADMAP queue 1 item 8")
 
@@ -103,6 +102,7 @@ def build_pipeline_unit(index: int, args: ParsedArguments, stop_event: threading
             smart_turn_max_wait_ms=args.vad.smart_turn_max_wait_ms,
             smart_turn_incomplete_delay_ms=args.vad.smart_turn_incomplete_delay_ms,
             device=device,  # the Smart Turn analyzer's and the default Silero model's
+            enhancer=_build_enhancer(args, device),
         ),
     )
     stt_spec = get_backend("stt", args.module.stt)
@@ -189,6 +189,24 @@ def build_pipeline(args: ParsedArguments, stop_event: threading.Event,
     if args.module.warmup_engines:
         warmup_engines()
     return ThreadManager([*handlers, server]), server
+
+
+def _build_enhancer(args: ParsedArguments, device: torch.device):
+    """Optional DeepFilterNet-method noise suppression on VAD-final audio
+    (reference ``vad_handler.py:44-50,799-821``): built only when a
+    converted checkpoint is given, on *device*; shared across units via the
+    cache."""
+    path = getattr(args.vad, "enhancer_checkpoint", None)
+    if not path:
+        return None
+    from s2s_tpu_torch import weights
+    from s2s_tpu_torch.models.deepfilter import DeepFilterEnhancer
+    from s2s_tpu_torch.registry import _load_checkpoint
+
+    return GLOBAL_MODEL_CACHE.get(
+        ("deepfilter", path, str(device)),
+        lambda: DeepFilterEnhancer(params=weights.deepfilter_params(_load_checkpoint(path), device), device=device),
+    )
 
 
 def _build_llm_proxy(args: ParsedArguments):

@@ -246,7 +246,6 @@ class LocalTorchLLMHandler(BaseLLMHandler):
             # this turn shares the batched engine's dispatch stream
             yield from self._decode_token_stream(self.shared_lm.generate(ids, max_new, cancel_check=cancel_check))
             return
-        chunk = max(1, int(self.gen_kwargs.get("decode_chunk_tokens", 8)))
         with self.scheduler.slot(lane):
             state = decoder_lm.init_decode_state(
                 self.cfg, 1, max_t=min(bucket + max_new, self.cfg.max_seq_len), device=self.device
@@ -256,35 +255,41 @@ class LocalTorchLLMHandler(BaseLLMHandler):
             if temperature > 0:
                 yield from self._sampled_decode(logits, state, max_new, temperature, cancel_check)
                 return
-            # greedy: decode in chunks — one host read per `chunk` tokens
-            # (cancellation polls between chunks)
-            token = torch.argmax(logits, dim=-1).to(torch.int32)
-            emitted = 0
-            pending: list[int] = []
-            while emitted < max_new:
-                n = min(chunk, max_new - emitted)
-                toks_dev, _eos, token, state = decoder_lm.decode_chunk(
-                    self.params, self.cfg, token, state, n, self.tokenizer.eos_id
-                )
-                toks = toks_dev[:, 0].cpu().numpy()
-                valid = n
-                hit_eos = False
-                nz = np.nonzero(toks == self.tokenizer.eos_id)[0]
-                if len(nz):
-                    valid, hit_eos = int(nz[0]), True
-                for t in toks[:valid]:
-                    pending.append(int(t))
-                    piece = self.tokenizer.decode(pending)
-                    if not piece.endswith("�"):  # only emit at UTF-8 boundaries
-                        yield piece
-                        pending = []
-                emitted += valid
-                if hit_eos:
-                    break
-                if cancel_check is not None and cancel_check():
-                    break
-            if pending:
-                yield self.tokenizer.decode(pending)
+            yield from self._greedy_decode(torch.argmax(logits, dim=-1).to(torch.int32), state, max_new,
+                                           cancel_check)
+
+    def _greedy_decode(self, token, state, max_new, cancel_check) -> Iterator[str]:
+        """Greedy decode from the first token (a (1,) tensor on the device)
+        in chunks: one host read per ``decode_chunk_tokens`` tokens
+        (cancellation polls between chunks), text emitted at UTF-8
+        boundaries."""
+        chunk = max(1, int(self.gen_kwargs.get("decode_chunk_tokens", 8)))
+        emitted = 0
+        pending: list[int] = []
+        while emitted < max_new:
+            n = min(chunk, max_new - emitted)
+            toks_dev, _eos, token, state = decoder_lm.decode_chunk(
+                self.params, self.cfg, token, state, n, self.tokenizer.eos_id
+            )
+            toks = toks_dev[:, 0].cpu().numpy()
+            valid = n
+            hit_eos = False
+            nz = np.nonzero(toks == self.tokenizer.eos_id)[0]
+            if len(nz):
+                valid, hit_eos = int(nz[0]), True
+            for t in toks[:valid]:
+                pending.append(int(t))
+                piece = self.tokenizer.decode(pending)
+                if not piece.endswith("�"):  # only emit at UTF-8 boundaries
+                    yield piece
+                    pending = []
+            emitted += valid
+            if hit_eos:
+                break
+            if cancel_check is not None and cancel_check():
+                break
+        if pending:
+            yield self.tokenizer.decode(pending)
 
     def _sampled_decode(self, logits, state, max_new, temperature, cancel_check) -> Iterator[str]:
         """Temperature sampling with an explicit generator, seeded afresh for

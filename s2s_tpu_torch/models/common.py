@@ -16,6 +16,7 @@ import functools
 from typing import Any, NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from s2s_tpu_torch.ops.flash_attention import flash_attention, use_flash_for
 from s2s_tpu_torch.ops.quant import (
@@ -107,6 +108,27 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Ten
         logits = logits.masked_fill(~mask, -1e30)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.matmul(probs.float(), v.float()).to(q.dtype)
+
+
+def xla_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.cumsum(x, axis=1)`` of (B, T, C) in the JAX package's order of
+    summation on the CPU (XLA's blocked rewrite): a left fold within blocks
+    of 16 steps, plus the blocks' exclusive prefix, itself summed so.  Where
+    a result hangs on the last ulps of a prefix sum (Kokoro's harmonic
+    phase, times up to 2*pi*300; Paraformer's token count, its floor),
+    another order gives another result."""
+    b, n, c = x.shape
+    nb = -(-n // 16)
+    xb = F.pad(x, (0, 0, 0, nb * 16 - n)).reshape(b, nb, 16, c)
+    acc, parts = xb[:, :, 0], [xb[:, :, 0]]
+    for k in range(1, 16):
+        acc = acc + xb[:, :, k]
+        parts.append(acc)
+    within = torch.stack(parts, dim=2)
+    if nb > 1:
+        offset = F.pad(xla_cumsum(within[:, :, -1])[:, :-1], (0, 0, 1, 0))
+        within = within + offset[:, :, None]
+    return within.reshape(b, nb * 16, c)[:, :n]
 
 
 def causal_mask(tq: int, tk: int, offset: int, device: torch.device | str = "cpu") -> torch.Tensor:

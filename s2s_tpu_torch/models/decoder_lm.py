@@ -207,6 +207,13 @@ def prefill(params: Params, cfg: DecoderLMConfig, tokens, state: DecodeState, pr
     return _logits(last[:, None, :], params, cfg)[:, 0], state
 
 
+def prefill_embeds(params: Params, cfg: DecoderLMConfig, embeds, state: DecodeState, prompt_len):
+    """Like :func:`prefill` over precomputed embeddings; returns the last
+    hidden state (B, D) after final_norm (the caller applies its own head)."""
+    last, state = _hidden_prefill(params, cfg, embeds.to(cfg.dtype), state, prompt_len)
+    return rms_norm(last, params["final_norm"], cfg.rms_eps), state
+
+
 def _hidden_step(params: Params, cfg: DecoderLMConfig, x, state: DecodeState):
     """x: (B, 1, D) one step of embeddings at ``state.pos``."""
     cos_full, sin_full = _rope(cfg, x.device)

@@ -44,6 +44,7 @@ import torch.nn.functional as F
 
 from s2s_tpu_torch import weights
 from s2s_tpu_torch.models.common import layer_norm
+from s2s_tpu_torch.models.common import xla_cumsum as _cumsum
 from s2s_tpu_torch.models.decoder_lm import normal
 
 Params = dict[str, Any]
@@ -290,27 +291,6 @@ def _interp_linear(x, out_len: int):
     hi = torch.clamp(lo + 1, max=t - 1)
     w = (pos - lo)[None, :, None]
     return x[:, lo] * (1 - w) + x[:, hi] * w
-
-
-def _cumsum(x):
-    """``jnp.cumsum(x, axis=1)`` of (B, T, C) in the JAX package's order of
-    summation on the CPU (XLA's blocked rewrite): a left fold within blocks
-    of 16 steps, plus the blocks' exclusive prefix, itself summed so.  The
-    harmonic phase is this sum times up to 2*pi*300, so another order moves
-    the source by ulps of a large phase, and the STFT phase of its near-zero
-    bins with it."""
-    b, n, c = x.shape
-    nb = -(-n // 16)
-    xb = F.pad(x, (0, 0, 0, nb * 16 - n)).reshape(b, nb, 16, c)
-    acc, parts = xb[:, :, 0], [xb[:, :, 0]]
-    for k in range(1, 16):
-        acc = acc + xb[:, :, k]
-        parts.append(acc)
-    within = torch.stack(parts, dim=2)
-    if nb > 1:
-        offset = F.pad(_cumsum(within[:, :, -1])[:, :-1], (0, 0, 1, 0))
-        within = within + offset[:, :, None]
-    return within.reshape(b, nb * 16, c)[:, :n]
 
 
 def _sine_source(p, cfg: KokoroConfig, f0):

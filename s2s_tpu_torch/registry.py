@@ -4,13 +4,14 @@ The registry types (``BackendSpec``, ``HandlerContext``, ``ModelCache``),
 the checkpoint loader and the backend aliases are the JAX package's, copied;
 ``HandlerContext`` also carries the device every model of the port lives on.
 The ported backends register under the SAME names, so the JAX package's
-flags work verbatim: ``whisper`` (and its ``faster-whisper``, ``whisper-mlx``
-and ``mlx-audio-whisper`` aliases), ``parakeet-tdt``, ``none`` (audio
-straight to the LLM), ``responses-api`` and ``chat-completions`` (the remote
-LLMs, host code copied from the JAX package), ``local-jax``, and every TTS
-family of the JAX package: ``qwen3``, ``kokoro`` (Kokoro-82M),
-``facebookMMS`` (MMS/VITS), ``pocket`` (Pocket-TTS with Mimi) and
-``chatTTS``.  The rest raise while the flags are parsed (:func:`get_backend`).
+flags work verbatim; every backend of the JAX registry is ported:
+``whisper`` (and its ``faster-whisper``, ``whisper-mlx`` and
+``mlx-audio-whisper`` aliases), ``parakeet-tdt``, ``paraformer``, ``none``
+(audio straight to the LLM), ``responses-api`` and ``chat-completions`` (the
+remote LLMs, host code copied from the JAX package), ``local-jax``,
+``local-vlm`` (SmolVLM's tower before the local LM, single-session), and
+every TTS family: ``qwen3``, ``kokoro`` (Kokoro-82M), ``facebookMMS``
+(MMS/VITS), ``pocket`` (Pocket-TTS with Mimi) and ``chatTTS``.
 
 With several pipeline units (``--num_pipelines``) or batched slots
 (``--llm_batched_slots``, ``--tts_batched_slots``) above 1, every unit shares
@@ -195,6 +196,24 @@ def _make_parakeet_stt(config, ctx: HandlerContext):
     )
 
 
+def _make_paraformer_stt(config, ctx: HandlerContext):
+    from s2s_tpu_torch.stt.paraformer_handler import ParaformerSTTHandler
+
+    tree = _load_checkpoint(config.checkpoint)
+    return ParaformerSTTHandler(
+        ctx.stop_event, ctx.queue_in, ctx.queue_out,
+        setup_kwargs=dict(
+            device=ctx.device,
+            speculative_turns=ctx.speculative_turns,
+            device_scheduler=ctx.device_scheduler,
+            cancel_scope=ctx.cancel_scope,
+            model_size=config.model_size,
+            language=config.language,
+            params=weights.paraformer_params(tree, ctx.device) if tree is not None else None,
+        ),
+    )
+
+
 def _make_none_stt(config, ctx: HandlerContext):
     from s2s_tpu_torch.llm.audio_input_notifier import AudioInputNotifier
 
@@ -294,6 +313,29 @@ def _make_local_llm(config, ctx: HandlerContext):
             shared_lm=shared_lm,
             speculative_prefill=config.speculative_prefill,
             speculative_tts=config.speculative_tts,
+            max_new_tokens=config.max_new_tokens,
+            stream_batch_sentences=config.stream_batch_sentences,
+            compact_history=config.compact_history,
+            enable_lang_prompt=config.enable_lang_prompt,
+            gen_kwargs=config.gen_kwargs,
+        ),
+    )
+
+
+def _make_local_vlm(config, ctx: HandlerContext):
+    from s2s_tpu_torch.llm.vlm_backend import VisionLocalTorchLLMHandler
+
+    # single-session, as in the JAX package: no shared engine, no quantize mode
+    tree = _load_checkpoint(config.checkpoint)
+    return VisionLocalTorchLLMHandler(
+        ctx.stop_event, ctx.queue_in, ctx.queue_out,
+        setup_kwargs=dict(
+            device=ctx.device,
+            cancel_scope=ctx.cancel_scope,
+            speculative_turns=ctx.speculative_turns,
+            device_scheduler=ctx.device_scheduler,
+            model_size=config.model_size,
+            params=weights.tree_to_torch(tree, ctx.device) if tree is not None else None,
             max_new_tokens=config.max_new_tokens,
             stream_batch_sentences=config.stream_batch_sentences,
             compact_history=config.compact_history,
@@ -575,6 +617,7 @@ from s2s_tpu_torch.arguments import (  # noqa: E402
     KokoroTTSArgs,
     LocalLLMArgs,
     MMSTTSArgs,
+    ParaformerArgs,
     ParakeetSTTArgs,
     PocketTTSArgs,
     Qwen3TTSArgs,
@@ -585,6 +628,7 @@ from s2s_tpu_torch.arguments import (  # noqa: E402
 STT_BACKENDS: dict[str, BackendSpec] = {
     "whisper": BackendSpec("whisper", "stt", WhisperSTTArgs, _make_whisper_stt),
     "parakeet-tdt": BackendSpec("parakeet-tdt", "stt", ParakeetSTTArgs, _make_parakeet_stt),
+    "paraformer": BackendSpec("paraformer", "stt", ParaformerArgs, _make_paraformer_stt),
     "none": BackendSpec(
         "none", "stt", WhisperSTTArgs, _make_none_stt,
         BackendCapabilities(bypasses_transcription_notifier=True),
@@ -600,6 +644,7 @@ LLM_BACKENDS: dict[str, BackendSpec] = {
         BackendCapabilities(supports_audio_input=True, supports_llm_proxy=True),
     ),
     "local-jax": BackendSpec("local-jax", "llm", LocalLLMArgs, _make_local_llm),
+    "local-vlm": BackendSpec("local-vlm", "llm", LocalLLMArgs, _make_local_vlm),
 }
 TTS_BACKENDS: dict[str, BackendSpec] = {
     "qwen3": BackendSpec("qwen3", "tts", Qwen3TTSArgs, _make_qwen3_tts),
@@ -634,14 +679,8 @@ def resolve_backend_alias(kind: str, name: str) -> str:
 
 
 def get_backend(kind: str, name: str) -> BackendSpec:
-    """The spec of a ported backend; an unported one (``paraformer``,
-    ``local-vlm``) raises and names the ROADMAP
-    queue (``s2s_tpu_torch.arguments`` calls this while it parses)."""
     name = resolve_backend_alias(kind, name)
     registry = {"stt": STT_BACKENDS, "llm": LLM_BACKENDS, "tts": TTS_BACKENDS}[kind]
     if name not in registry:
-        raise NotImplementedError(
-            f"{kind} backend {name!r} is not ported to s2s_tpu_torch yet (ROADMAP queue 1); "
-            f"ported: {sorted(registry)}"
-        )
+        raise ValueError(f"Unknown {kind} backend {name!r}; available: {sorted(registry)}")
     return registry[name]

@@ -250,3 +250,32 @@ def chattts_params(tree: Any, device: torch.device | str) -> Any:
                  *(blk["dw"] for blk in dv["blocks"]), *(layer["dw"] for layer in vc["layers"])]:
         conv["w"] = conv_weight(conv["w"])
     return p
+
+
+def paraformer_params(tree: Any, device: torch.device | str) -> Any:
+    """A Paraformer tree (``s2s_tpu/models/paraformer.py`` layout: from its
+    ``init_params`` or ``convert_state_dict``) -> the port's: tensors on
+    *device*, the FSMN blocks' depthwise ``(K, 1, D)`` weights as Conv1d's
+    ``(D, 1, K)`` and the predictor's ``(3, d, d)`` convolution as
+    ``(d, d, 3)``; the linear layers keep their ``(in, out)`` layout."""
+    p = tree_to_torch(tree, device)
+    for layer in [p["enc0"], *p["enc"], *p["dec"]]:
+        layer["fsmn_w"] = conv_weight(layer["fsmn_w"])
+    p["predictor"]["conv_w"] = conv_weight(p["predictor"]["conv_w"])
+    return p
+
+
+def vision_params(tree: Any, device: torch.device | str) -> Any:
+    """A SigLIP tower + connector tree (``s2s_tpu/models/vision.py`` layout:
+    from its ``init_params`` or ``convert_hf_state_dict``) -> tensors on
+    *device*; the layout is kept (the patch weight HWIO ``(p, p, 3, d)``,
+    which the port applies as a product over flattened patches)."""
+    return tree_to_torch(tree, device)
+
+
+def deepfilter_params(tree: Any, device: torch.device | str) -> Any:
+    """A DeepFilter tree (``s2s_tpu/models/deepfilter.py`` layout: from its
+    ``init_params`` or ``convert_state_dict``) -> tensors on *device*; the
+    layout is kept (the convolutions' ``(kT, kF, Cin, Cout)`` weights, which
+    the port applies as products over their windows)."""
+    return tree_to_torch(tree, device)

@@ -66,11 +66,40 @@ SHARED = {
         "folded: the scipy path and the polyphase filter are copied; the jitted on-device polyphase is "
         "the port's torch_resample_poly"),
     "registry.py": (
-        ["registry.py"], {}, {"_make_whisper_stt", "_make_parakeet_stt", "_make_local_llm", "_make_qwen3_tts",
-                              "_make_kokoro_tts", "_make_mms_tts", "_make_pocket_tts", "_make_chattts",
-                              "STT_BACKENDS", "LLM_BACKENDS", "TTS_BACKENDS", "resolve_backend_alias", "get_backend"},
-        "folded: the registry types, loaders and aliases are copied; the factories and the registries "
-        "are the port's (its devices, its models, unported backends raise)"),
+        ["registry.py"], {}, {"_make_whisper_stt", "_make_parakeet_stt", "_make_paraformer_stt", "_make_local_llm",
+                              "_make_local_vlm", "_make_qwen3_tts", "_make_kokoro_tts", "_make_mms_tts",
+                              "_make_pocket_tts", "_make_chattts", "STT_BACKENDS", "LLM_BACKENDS", "TTS_BACKENDS",
+                              "resolve_backend_alias"},
+        "folded: the registry types, loaders, aliases and lookup are copied; the factories and the registries "
+        "are the port's (its devices, its models)"),
+    "stt/paraformer_handler.py": (
+        ["stt/paraformer_handler.py"], {}, set(),
+        "folded: setup (Chinese by default) is copied; the transcriber (_build_transcriber, the port's name) "
+        "runs the log-mel kernel, LFR + CMVN on the device and the port's Paraformer"),
+    "llm/vlm_backend.py": (
+        ["llm/vlm_backend.py"], {"VisionLocalTorchLLMHandler": ["VisionLocalJAXLLMHandler"]},
+        {"VisionLocalTorchLLMHandler.setup", "VisionLocalTorchLLMHandler._jax_generate"},
+        "folded: extract_image_urls is copied; setup draws the tower from a torch.Generator on the device, "
+        "generation runs the port's tower, prefill_embeds and chunked greedy decode"),
+    "models/paraformer.py": (
+        ["models/paraformer.py"], {},
+        {"ParaformerConfig.dtype", "lfr_cmvn", "_lin", "_fsmn", "_sanm_attention", "_enc_layer", "_sinusoid_positions",
+         "encode", "cif_alphas", "cif_fire", "_cross_attention", "_dec_ff", "_dec_layer", "decode", "forward",
+         "transcribe_tokens", "init_params"},
+        "folded: the configuration is copied; the frontend (LFR + CMVN on the device, held bit-equal to the "
+        "numpy function by tests/test_torch_port_paraformer.py) and the model are the port's"),
+    "models/vision.py": (
+        ["models/vision.py"], {},
+        {"VisionConfig.dtype", "VisionConfig.test_tiny", "_lin", "encode_image", "init_params"},
+        "folded: the configuration and the image preprocessing are copied; the tower is the port's"),
+    "models/deepfilter.py": (
+        ["models/deepfilter.py"], {},
+        {"init_params", "init_state", "_causal_conv2d", "_stft", "enhance", "DeepFilterEnhancer.__init__",
+         "DeepFilterEnhancer.__call__", *(f"DFState.{f}" for f in ("gru_h", "erb_mean", "mag_mean", "erb_prev",
+                                                                  "erb_prev1", "df_prev", "df_prev1", "spec_hist"))},
+        "folded: the configuration, the ERB filterbank and the enhancer's buckets are copied; the state holds "
+        "tensors, the frames run through the port's filter_frames (loops only over the recurrences) on its "
+        "device, the enhancer takes a device"),
     "ops/mel.py": (
         ["ops/mel.py"], {}, {"frame_audio", "log_mel_spectrogram"},
         "folded: the numpy filterbank and DFT bases are copied; framing and the log-mel run in torch "

@@ -14,6 +14,11 @@
   turns each with audio deltas and ``response.done``.
 - Every ``s2s_tpu_torch`` module imports, and both tiny pipelines build, in a
   process where importing ``jax`` or the JAX package ``s2s_tpu`` fails.
+- Tiny serves with ``--stt paraformer``, ``--llm_backend local-vlm`` and
+  ``--vad_enhancer_checkpoint`` (a converted ``DeepFilterConfig()``
+  checkpoint) each answer a text turn and a voice turn; the enhancer takes
+  every VAD-final segment, and turns without an image never run the tower
+  (the image path is held in ``test_torch_port_vision.py``).
 - ``--model_parallel`` above 1 raises at build time instead of degrading.
 - The slice's stages against the JAX package's handlers on the same tiny
   weights: the LLM streams the same text, the STT transcribes the same tokens
@@ -27,10 +32,11 @@ import os
 import subprocess
 import sys
 import threading
+import time
 
 import pytest
 
-from chip_smoke import tts_flags  # the serves' flags with another TTS, as the card's serves take them
+from chip_smoke import flat_tree, tts_flags  # the card's serves' flags with another TTS; a tree as an npz
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -342,7 +348,8 @@ print("OK", len(names))
 
 def test_port_imports_and_builds_without_jax():
     env = dict(os.environ, PYTHONPATH=ROOT)
-    proc = subprocess.run([sys.executable, "-c", _NO_JAX, json.dumps([TINY_FLAGS, BATCHED_FLAGS, WHISPER_FLAGS])],
+    proc = subprocess.run([sys.executable, "-c", _NO_JAX, json.dumps([TINY_FLAGS, BATCHED_FLAGS, WHISPER_FLAGS,
+                                                                  _with(PARAFORMER_FLAGS, llm_backend="local-vlm")])],
                           cwd=ROOT,
                           env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
@@ -356,16 +363,92 @@ def test_model_parallel_raises_at_build_time():
         cli.build_from_argv(["--device", "cpu", *BATCHED_FLAGS, "--model_parallel", "2"], threading.Event())
 
 
-def test_unported_options_raise():
-    from s2s_tpu_torch import cli
+#: the serves of the backends ported last: Paraformer tiny, the VLM stage
+#: (SmolLM2 tiny behind the full SigLIP tower, random weights; a text turn
+#: never runs the tower)
+PARAFORMER_FLAGS = _with(TINY_FLAGS, stt="paraformer")
+VLM_FLAGS = _with(TINY_FLAGS, llm_backend="local-vlm")
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.build_from_argv(["--device", "cpu", *TINY_FLAGS, "--vad_enhancer_checkpoint", "deepfilter.npz"],
-                            threading.Event())
-    with pytest.raises(NotImplementedError, match="not ported"):
-        cli.build_from_argv(["--device", "cpu", *TINY_FLAGS, "--stt", "paraformer"], threading.Event())
-    with pytest.raises(NotImplementedError, match="not ported"):
-        cli.build_from_argv(["--device", "cpu", *TINY_FLAGS, "--llm_backend", "local-vlm"], threading.Event())
+
+def _serve_text_and_voice_turns(flags: list[str]):
+    """One text turn, then one voice turn (each its own session), on a tiny
+    serve built by the CLI: (handlers, text events, voice events)."""
+    from s2s_tpu_torch import cli
+    from s2s_tpu_torch.registry import GLOBAL_MODEL_CACHE
+
+    stop = threading.Event()
+    manager, server, _ = cli.build_from_argv(["--device", "cpu", *flags], stop)
+    manager.start()
+    try:
+        assert server.started.wait(30)
+        url = f"ws://127.0.0.1:{server.bound_port}/v1/realtime"
+        text = asyncio.run(_text_turn(url, "Hello there", 120))
+        deadline = time.monotonic() + 30
+        while server.pool[0].session is not None and time.monotonic() < deadline:
+            time.sleep(0.05)  # the one unit frees once the text session has drained
+        voice = asyncio.run(_voice_turn(url, 240))
+    finally:
+        stop.set()
+        manager.stop()
+        GLOBAL_MODEL_CACHE.clear()
+    _assert_spoken([text])
+    types = [e["type"] for e in voice]
+    transcripts = [e["transcript"] for e in voice
+                   if e["type"] == "conversation.item.input_audio_transcription.completed"]
+    assert transcripts, types
+    if transcripts[0].strip():  # a random-init reply may be empty: then no audio
+        assert "response.output_audio.delta" in types and voice[-1]["type"] == "response.done", types
+    return manager.handlers, text, voice, transcripts[0]
+
+
+def test_tiny_cpu_serve_with_paraformer_answers_a_text_and_a_voice_turn():
+    from s2s_tpu_torch.stt.paraformer_handler import ParaformerSTTHandler
+
+    handlers, _, _, transcript = _serve_text_and_voice_turns(PARAFORMER_FLAGS)
+    stt = next(h for h in handlers if isinstance(h, ParaformerSTTHandler))
+    assert stt.language == "zh" and stt._paraformer_cfg.d_model == 16
+    # random weights and no tokenizer: the transcript is the token ids
+    assert transcript.strip() and all(t.isdigit() for t in transcript.split())
+
+
+def test_tiny_cpu_serve_with_the_vlm_stage_answers_a_text_and_a_voice_turn(monkeypatch):
+    from s2s_tpu_torch.llm.vlm_backend import VisionLocalTorchLLMHandler
+    from s2s_tpu_torch.models import vision
+
+    encodes = []
+    monkeypatch.setattr(vision, "encode_image", lambda *a: encodes.append(a))
+    handlers, _, _, _ = _serve_text_and_voice_turns(VLM_FLAGS)
+    llm = next(h for h in handlers if isinstance(h, VisionLocalTorchLLMHandler))
+    assert llm.vision_cfg == vision.VisionConfig(d_out=llm.cfg.d_model) and llm.shared_lm is None
+    assert not encodes  # turns without an image never run the tower
+
+
+def test_tiny_cpu_serve_with_the_enhancer_answers_a_text_and_a_voice_turn(monkeypatch, tmp_path):
+    """``--vad_enhancer_checkpoint`` with a converted DeepFilterConfig()
+    checkpoint from a seed: every VAD-final segment goes through it."""
+    import numpy as np
+    import torch
+
+    from s2s_tpu_torch.models import deepfilter
+    from s2s_tpu_torch.vad.handler import VADHandler
+
+    tree = deepfilter.init_params(deepfilter.DeepFilterConfig(), torch.Generator().manual_seed(0))
+    path = tmp_path / "deepfilter.npz"
+    np.savez(path, **flat_tree(tree))
+    calls = []
+    real = deepfilter.DeepFilterEnhancer.__call__
+
+    def counted(self, audio):
+        out = real(self, audio)
+        calls.append((audio.size, out.size, bool(np.isfinite(out).all())))
+        return out
+
+    monkeypatch.setattr(deepfilter.DeepFilterEnhancer, "__call__", counted)
+    handlers, _, _, _ = _serve_text_and_voice_turns(TINY_FLAGS + ["--vad_enhancer_checkpoint", str(path)])
+    vad = next(h for h in handlers if isinstance(h, VADHandler))
+    assert isinstance(vad.enhancer, deepfilter.DeepFilterEnhancer)
+    torch.testing.assert_close(vad.enhancer.params["gru"]["wh"], tree["gru"]["wh"], rtol=0, atol=0)
+    assert calls and all(n_in == n_out and finite for n_in, n_out, finite in calls)
 
 
 def test_whisper_aliases_and_voice_cloning_build(tmp_path):
