@@ -191,12 +191,24 @@ Phases, each printed on its own line:
    same length), an image turn (one tower run and ``SIGLIP_LAYERS`` flash
    launches per attempt, answered with audio; a failed image decode fails
    the phase), a text turn with no tower run; then a Paraformer
-   forward's, the tower's and DeepFilter's device and wall times.
+   forward's, the tower's and DeepFilter's device and wall times;
+27. ``tiny_train_parity`` (after phase 26): the tiny f32 decoder's training
+   path on the card against the CPU, three AdamW steps through
+   ``make_sharded_train_step`` on a 1 x 1 mesh of each and three
+   ``sgd_train_step``s, losses and parameters within ``TINY_TRAIN_REL``;
+28. ``train``: full-width SmolLM2-1.7B, random weights from a seed, takes
+   ``TRAIN_STEPS`` AdamW steps on a 1 x 1 mesh of the card
+   (``make_mesh()``) over a ``TRAIN_BATCH`` batch from a numpy seed: each
+   step's loss (finite, the last below the first), wall and device time,
+   the last step's kernels and busy time under ``torch.profiler``, the
+   peak allocation; no hand-written kernel may launch (the path reaches
+   none); then ``forward`` over a ``SCORE_PROMPT``-token prompt at its last
+   position against ``prefill``'s logits, within ``SCORE_ULPS`` bf16 ulps.
 
 After every serve a ``serve_memory`` line gives what stays allocated on the
 card once the phase has returned, before and after a garbage collection.
 
-Phases 3, 4, 8, 9, 10, 12, 13, 14, 21, 23 and 25 run with TF32 off, so that f32
+Phases 3, 4, 8, 9, 10, 12, 13, 14, 21, 23, 25 and 27 run with TF32 off, so that f32
 products are compared in full f32; the serves and phases 16-20 run with
 torch's defaults, as ``s2s_tpu_torch.cli`` does (cuDNN's convolutions, so
 Kokoro's and VITS's, in TF32).  A ``seconds`` line gives each
@@ -237,6 +249,7 @@ import zlib
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 FULL_FLAGS = [
     "--host", "127.0.0.1", "--port", "0",
@@ -452,6 +465,19 @@ IMAGE_SIDE = 96
 IMAGE_PROMPTS = [("What is in this picture?", "red"), ("Describe the image.", "green"),
                  ("What colors do you see?", "blue"), ("Tell me about this photo.", "red")]
 TEXT_PROMPTS = [TEXT, "Tell me a story about the sea.", "How are you today?"]
+#: the training phases: the tiny f32 steps on the card against the CPU
+#: within TINY_TRAIN_REL x max|CPU| (losses and every parameter leaf); the
+#: full-width SmolLM2-1.7B batch (rows, tokens), its AdamW steps and lr
+TINY_TRAIN_REL = 1e-5
+TRAIN_BATCH = (4, 512)
+TRAIN_STEPS = 3
+TRAIN_LR = 1e-4
+#: the scoring check: ``forward`` over a prompt of SCORE_PROMPT tokens
+#: against ``prefill`` of the same prompt, at its last position, within
+#: SCORE_ULPS bf16 ulps of max|prefill| (the same layer stack; the head's
+#: bf16 product over 1 row or SCORE_PROMPT rows may round otherwise)
+SCORE_PROMPT = 100
+SCORE_ULPS = 4
 L2_BYTES = 50 << 20
 #: H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, dense bf16 FLOP/s, dense int8 OP/s
 HBM_BPS = 3.35e12
@@ -3227,6 +3253,158 @@ def _reply(events, what: str) -> tuple[np.ndarray, float]:
     return pcm, done[-1][0]
 
 
+def _train_batch(rng: np.random.Generator, rows: int, t: int, vocab: int) -> tuple[torch.Tensor, ...]:
+    """(tokens, targets = tokens rolled by one, mask) from a numpy seed; the
+    mask drops the wrapped last target and, in row 1, the first 3."""
+    tokens = rng.integers(0, vocab, (rows, t)).astype(np.int32)
+    mask = np.ones((rows, t), np.int32)
+    mask[:, -1] = 0
+    mask[1 % rows, :3] = 0
+    return tuple(torch.from_numpy(a) for a in (tokens, np.roll(tokens, -1, axis=1), mask))
+
+
+def _full(tree) -> dict[str, np.ndarray]:
+    """A (DTensor) parameter tree's leaves, whole, as host f32 arrays by path."""
+    from torch.distributed.tensor import DTensor
+
+    return {k: (v.full_tensor() if isinstance(v, DTensor) else v).detach().float().cpu().numpy()
+            for k, v in _leaves(tree).items()}
+
+
+def _leaves(tree, prefix: str = "") -> dict:
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items() for k, v in _leaves(sub, f"{prefix}{key}/").items()}
+    return {prefix[:-1]: tree}
+
+
+def tiny_train_parity_phase(dev: torch.device) -> None:
+    """The tiny f32 decoder's training path on the card against the CPU:
+    three AdamW steps through ``make_sharded_train_step`` on a 1 x 1 mesh of
+    each device and three ``sgd_train_step``s, from the same parameters and
+    batch; losses and every parameter leaf within ``TINY_TRAIN_REL`` x
+    max|CPU| (the CPU path is held against the JAX package by
+    ``tests/test_torch_port_training.py``)."""
+    from s2s_tpu_torch.models import decoder_lm
+    from s2s_tpu_torch.parallel import mesh, training
+
+    cfg = decoder_lm.DecoderLMConfig.tiny()
+    params = decoder_lm.init_params(cfg, torch.Generator().manual_seed(4))
+    batch = _train_batch(np.random.default_rng(4), 4, 16, cfg.vocab_size)
+    out = {}
+    for label, device_type, device in (("cuda", "cuda", dev), ("cpu", "cpu", "cpu")):
+        init_fn, run_step = training.make_sharded_train_step(cfg, mesh.make_mesh(device_type=device_type))
+        state = init_fn(params=params)
+        adam = []
+        for _ in range(TRAIN_STEPS):
+            loss, state = run_step(state, *batch)
+            adam.append(float(loss))
+        sgd_params, sgd = pytree.tree_map(lambda t: t.to(device), params), []
+        for _ in range(TRAIN_STEPS):
+            loss, sgd_params = decoder_lm.sgd_train_step(sgd_params, cfg, *(t.to(device) for t in batch), lr=1e-2)
+            sgd.append(float(loss))
+        check(int(state.step) == TRAIN_STEPS and int(state.opt_state.count) == TRAIN_STEPS,
+              f"tiny train {label}: step {int(state.step)}, count {int(state.opt_state.count)}")
+        out[label] = {"adam": (adam, _full(state.params)), "sgd": (sgd, _full(sgd_params))}
+    errs = {}
+    for kind in ("adam", "sgd"):
+        (ref_losses, ref), (losses, got) = out["cpu"][kind], out["cuda"][kind]
+        check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0], f"tiny {kind} losses {losses}")
+        loss_err = max(abs(a - b) / abs(a) for a, b in zip(ref_losses, losses))
+        check(loss_err <= TINY_TRAIN_REL, f"tiny {kind} losses cuda {losses} vs cpu {ref_losses}")
+        errs[kind] = max(float(np.abs(ref[k] - got[k]).max() / np.abs(ref[k]).max()) for k in ref)
+        check(errs[kind] <= TINY_TRAIN_REL, f"tiny {kind} parameters cuda vs cpu rel {errs[kind]}")
+        errs[f"{kind}_losses"] = losses
+    phase("tiny_train_parity", steps=TRAIN_STEPS, adam_param_rel_err=errs["adam"], sgd_param_rel_err=errs["sgd"],
+          adam_losses=errs["adam_losses"], sgd_losses=errs["sgd_losses"], bound=TINY_TRAIN_REL)
+
+
+def train_phase(dev: torch.device, card: list[str]) -> dict:
+    """Full-width SmolLM2-1.7B (random weights from a seed) takes
+    ``TRAIN_STEPS`` AdamW steps on a 1 x 1 mesh of the card through
+    ``make_sharded_train_step`` on a ``TRAIN_BATCH`` batch from a numpy
+    seed: each step's loss (finite, the last below the first), wall time
+    and device time (CUDA events from the step's first launch to its last
+    kernel), the last step's kernels and device busy time under
+    ``torch.profiler`` (its wall time then includes the profiler's cost),
+    the peak allocation; the hand-written kernels must not launch (the
+    training path reaches none).  Then scoring against serving: ``forward``
+    over a ``SCORE_PROMPT``-token prompt at its last position against
+    ``prefill``'s logits, within ``SCORE_ULPS`` bf16 ulps of max|prefill|."""
+    from s2s_tpu_torch.models import decoder_lm
+    from s2s_tpu_torch.parallel import mesh, training
+
+    cfg = decoder_lm.DecoderLMConfig.smollm2_1_7b()
+    counters = _launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    the_mesh = mesh.make_mesh()
+    init_fn, run_step = training.make_sharded_train_step(cfg, the_mesh, lr=TRAIN_LR)
+    state = init_fn(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = tuple(t.to(dev) for t in _train_batch(np.random.default_rng(0), *TRAIN_BATCH, cfg.vocab_size))
+    steps = []
+    for i in range(TRAIN_STEPS):
+        profiled = i == TRAIN_STEPS - 1
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        start.record()
+        if profiled:
+            (loss, state), device = _device_events(lambda: run_step(state, *batch))
+        else:
+            loss, state = run_step(state, *batch)
+        end.record()
+        loss = float(loss)
+        torch.cuda.synchronize()
+        step = {"step": i + 1, "loss": loss, "wall_s": time.perf_counter() - t, "device_ms": start.elapsed_time(end)}
+        if profiled:
+            kernels = [e for e in device if not e.name().startswith(("Memcpy", "Memset"))]
+            by_name: dict[str, float] = {}
+            for e in kernels:
+                by_name[e.name()] = by_name.get(e.name(), 0.0) + e.duration_ns() / 1e6
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+            step.update(profiled=True, busy_ms=_busy_ms(device), kernels=len(kernels),
+                        copies_and_memsets=len(device) - len(kernels),
+                        top_kernels=[{"name": n[:120], "ms": ms} for n, ms in top])
+        steps.append(step)
+        phase("train_step", card=card, **step)
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = {name: fn.launches for name, fn in counters.items()}
+    losses = [s["loss"] for s in steps]
+    check(all(math.isfinite(x) for x in losses), f"train losses {losses}")
+    check(losses[-1] < losses[0], f"train: step {TRAIN_STEPS}'s loss {losses[-1]} is not below step 1's {losses[0]}")
+    check(int(state.step) == TRAIN_STEPS, f"train step count {int(state.step)}")
+    check(not any(launches.values()), f"train: hand-written kernels launched {launches}")
+
+    # scoring ties to serving: the trained weights, whole on the one card
+    params = pytree.tree_map(lambda t: t.to_local(), state.params)
+    del state
+    prompt = batch[0][:1, :SCORE_PROMPT]
+    with torch.no_grad():
+        scored = decoder_lm.forward(params, cfg, prompt)[:, SCORE_PROMPT - 1]
+        served, _ = decoder_lm.prefill(params, cfg, prompt, decoder_lm.init_decode_state(
+            cfg, 1, max_t=SCORE_PROMPT, device=dev), SCORE_PROMPT)
+    top = served.abs().max().item()
+    score_err = (scored - served).abs().max().item()
+    check(score_err <= SCORE_ULPS * bf16_ulp(top),
+          f"forward[:, p-1] vs prefill: {score_err} > {SCORE_ULPS} bf16 ulps of {top}")
+    result = {"config": "smollm2_1_7b", "layers": cfg.n_layers, "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+              "batch": list(TRAIN_BATCH), "lr": TRAIN_LR, "mesh": list(the_mesh.mesh.shape), "init_s": init_s,
+              "losses": losses, "wall_s": [s["wall_s"] for s in steps], "device_ms": [s["device_ms"] for s in steps],
+              "peak_allocated_bytes": peak, "kernel_launches": launches, "score_max_abs_err": score_err,
+              "score_bound": SCORE_ULPS * bf16_ulp(top), "card": card}
+    phase("train", **result)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to PyTorch", file=sys.stderr)
@@ -3293,6 +3471,9 @@ def main() -> int:
     deployment = run("deployment_serve", deployment_serve_phase, dev, smi)
     # the backends ported last, after every other serve, under torch's defaults
     vlm = run("paraformer_vlm_serve", paraformer_vlm_serve_phase, dev, smi)
+    # the decoder LM's training path, last: a process group of world size 1 for its meshes
+    run("tiny_train_parity", tiny_train_parity_phase, dev, tf32=False)
+    run("train", train_phase, dev, smi)
     phase("seconds", **seconds)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -32,6 +32,21 @@ from s2s_tpu_torch.ops.quant import (
 Params = dict[str, Any]
 
 
+class PartitionSpec(tuple):
+    """Per tensor dim, the mesh axis it is split over (None: not split);
+    dims past its length are not split.  ``P("model", None)``.  The port's
+    own counterpart of JAX's, for :mod:`s2s_tpu_torch.parallel.mesh`."""
+
+    def __new__(cls, *parts: str | None) -> "PartitionSpec":
+        return super().__new__(cls, parts)
+
+    def __repr__(self) -> str:
+        return f"P{tuple(self)!r}"
+
+
+P = PartitionSpec
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     x32 = x.float()
     x32 = x32 * torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + eps)
@@ -173,6 +188,23 @@ def layer_slice(layers: Params, i: int) -> Params:
         else:
             out[name] = leaf[i]
     return out
+
+
+def unstack_layers(layers: Params) -> list[Params]:
+    """Every layer of a stacked layer tree, as :func:`layer_slice` gives
+    them, from one ``unbind`` a tensor: its backward is one stack, where a
+    slice a layer writes a whole stacked gradient for each."""
+    n = n_stacked(layers)
+
+    def split(leaf) -> list:
+        if isinstance(leaf, QUANT_TYPES):
+            return [type(leaf)(*parts) for parts in zip(*(part.unbind(0) for part in leaf))]
+        if isinstance(leaf, dict):
+            subs = {name: split(sub) for name, sub in leaf.items()}
+            return [{name: sub[i] for name, sub in subs.items()} for i in range(n)]
+        return list(leaf.unbind(0))
+
+    return split(layers)
 
 
 def n_stacked(layers: Params) -> int:

@@ -9,30 +9,41 @@ Layer weights stay STACKED with a leading layer axis, as in the JAX package
 (and in its converted ``.npz`` checkpoints); the layer loop indexes them per
 layer where JAX runs a ``lax.scan``.  The KV cache is written in place.
 The decode position is a host integer: the serving loops here are eager, so
-it costs no device sync.  Training, sharding and HF conversion are not
-ported yet (ROADMAP).
+it costs no device sync.
+
+The training and scoring path (:func:`forward`, :func:`loss_fn`,
+:func:`sgd_train_step`) runs the same layer loop without a cache; gradients
+come from ``torch.autograd`` and nothing on it writes in place.  Its
+parameters may be plain tensors or DTensors placed on a ``("data",
+"model")`` mesh per :func:`param_shardings`
+(:mod:`s2s_tpu_torch.parallel.mesh`); the constants the forward makes are
+then lifted onto the parameters' mesh.  :func:`convert_hf_state_dict` maps a
+Hugging Face Llama/SmolLM2 checkpoint onto the parameter tree.
 """
 
 from __future__ import annotations
 
+import sys
 from dataclasses import dataclass
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from s2s_tpu_torch.models.common import (
     KVCache,
+    P,
     Params,
     apply_rope,
     attention,
     causal_mask,
-    layer_slice,
     length_mask,
     linear,
-    n_stacked,
     rms_norm,
     rope_frequencies,
     swiglu,
+    unstack_layers,
 )
 from s2s_tpu_torch.ops.quant import QUANT_TYPES
 
@@ -119,6 +130,35 @@ def init_params(cfg: DecoderLMConfig, gen: torch.Generator, device: torch.device
     return params
 
 
+def param_shardings(cfg: DecoderLMConfig) -> Params:
+    """Megatron-style specs over a ("data", "model") mesh (stacked layers get
+    a leading replicated layer axis): columns on "model" for the q/k/v, gate
+    and up projections, rows for the output and down projections, the
+    vocabulary for the embedding (and an untied head's columns)."""
+    layers = {
+        "attn_norm": P(None, None),
+        "wq": P(None, None, "model"),
+        "wk": P(None, None, "model"),
+        "wv": P(None, None, "model"),
+        "wo": P(None, "model", None),
+        "mlp_norm": P(None, None),
+        "w_gate": P(None, None, "model"),
+        "w_up": P(None, None, "model"),
+        "w_down": P(None, "model", None),
+    }
+    if cfg.qk_norm:
+        layers["q_norm"] = P(None, None)
+        layers["k_norm"] = P(None, None)
+    specs: Params = {
+        "embed": P("model", None),
+        "layers": layers,
+        "final_norm": P(),
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = P(None, "model")
+    return specs
+
+
 class DecodeState(NamedTuple):
     """Decode carry: stacked per-layer caches (L, B, n_kv, max_t, head_dim),
     written in place, and the next write position (host int)."""
@@ -140,14 +180,14 @@ def _block(x, lp: Params, cfg: DecoderLMConfig, cache: KVCache | None, pos, cos,
     """One transformer block over UNSTACKED layer params; returns (x, cache)."""
     b, t, _ = x.shape
     h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
-    q = linear(h, lp["wq"]).reshape(b, t, cfg.n_heads, cfg.head_dim)
-    k = linear(h, lp["wk"]).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
+    q = _split_heads(linear(h, lp["wq"]), cfg.n_heads, cfg.head_dim)
+    k = _split_heads(linear(h, lp["wk"]), cfg.n_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = rms_norm(q, lp["q_norm"], cfg.rms_eps)
         k = rms_norm(k, lp["k_norm"], cfg.rms_eps)
     q = q.transpose(1, 2)
     k = k.transpose(1, 2)
-    v = linear(h, lp["wv"]).reshape(b, t, cfg.n_kv_heads, cfg.head_dim).transpose(1, 2)
+    v = _split_heads(linear(h, lp["wv"]), cfg.n_kv_heads, cfg.head_dim).transpose(1, 2)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     if cache is not None:
@@ -155,19 +195,86 @@ def _block(x, lp: Params, cfg: DecoderLMConfig, cache: KVCache | None, pos, cos,
         k_all, v_all = cache.k, cache.v
     else:
         k_all, v_all = k, v
-    attn = attention(q, k_all, v_all, mask)
+    attn = _attention(q, k_all, v_all, mask)
     attn = attn.transpose(1, 2).reshape(b, t, cfg.n_heads * cfg.head_dim)
     x = x + linear(attn, lp["wo"])
     h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
     return x + swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"]), cache
 
 
+def _dtensor(t):
+    """``torch.distributed.tensor`` when *t* is a DTensor (parameters placed
+    on a mesh), else None: a DTensor can exist only once that module is
+    imported, so the single-device path never imports it."""
+    module = sys.modules.get("torch.distributed.tensor")
+    return module if module is not None and isinstance(t, module.DTensor) else None
+
+
+def _split_heads(x, n: int, head_dim: int):
+    """``x.reshape(b, t, n, head_dim)``.  On a DTensor whose features are
+    split on a mesh axis that does not divide *n* (more ranks on "model"
+    than kv heads), they are first gathered on that axis: DTensor does not
+    split a head across ranks."""
+    dtensor = _dtensor(x)
+    if dtensor is not None:
+        mesh = x.device_mesh
+        placements = [dtensor.Replicate() if p == dtensor.Shard(2) and n % mesh.size(i) else p
+                      for i, p in enumerate(x.placements)]
+        if placements != list(x.placements):
+            x = x.redistribute(mesh, placements)
+    return x.reshape(*x.shape[:2], n, head_dim)
+
+
+def _placed(dtensor, local: torch.Tensor, mesh, placements, shape) -> torch.Tensor:
+    """A DTensor of global *shape* (contiguous) from each rank's *local* shard."""
+    return dtensor.DTensor.from_local(local, mesh, placements, run_check=False, shape=shape,
+                                      stride=torch.empty(shape, device="meta").stride())
+
+
+def _attention(q, k, v, mask):
+    """:func:`attention`; on DTensors (the training path on a mesh) shard by
+    shard.  Rows and heads are independent: q, k and v are placed with their
+    rows as q's on "data" and their heads split on "model" (whole heads and
+    their kv heads on each rank, the megatron layout; a partial sum from the
+    projections is reduced here), and each rank attends its own shard.
+    Heads split only where the "model" axis divides the kv heads (and so
+    the q heads, a multiple of them): else a rank's q heads would meet
+    another group's kv heads, so there every rank of "model" attends all
+    heads.  DTensor's batched product would merge the row and head dims,
+    split over two mesh axes, which not every release propagates."""
+    dtensor = _dtensor(q)
+    if dtensor is None:
+        return attention(q, k, v, mask)
+    mesh, rows, shape = q.device_mesh, dtensor.Shard(0), q.shape
+    names = mesh.mesh_dim_names
+    heads = dtensor.Shard(1) if k.shape[1] % mesh.size(names.index("model")) == 0 else dtensor.Replicate()
+    placements = [heads if axis == "model" else (rows if p == rows else dtensor.Replicate())
+                  for axis, p in zip(names, q.placements)]
+    q, k, v = (t.redistribute(mesh, placements).to_local() for t in (q, k, v))
+    return _placed(dtensor, attention(q, k, v, mask.full_tensor()), mesh, placements, shape)
+
+
+def _embed(table, tokens):
+    """``table[tokens]``; on DTensors, rank by rank: the vocabulary shards
+    gathered into the whole table, each rank's tokens looked up in it, and
+    the rows placed as the tokens are.  The table's gradient from ranks that
+    saw other rows is a partial sum on those axes, reduced by DTensor; its
+    batched scatter (the lookup's backward) would otherwise go through
+    sharding rules that not every release has."""
+    dtensor = _dtensor(table)
+    if dtensor is None:
+        return table[tokens]
+    mesh = table.device_mesh
+    seen = [dtensor.Partial() if isinstance(p, dtensor.Shard) else dtensor.Replicate() for p in tokens.placements]
+    whole = table.redistribute(mesh, [dtensor.Replicate()] * mesh.ndim).to_local(grad_placements=seen)
+    return _placed(dtensor, whole[tokens.to_local()], mesh, tokens.placements, (*tokens.shape, table.shape[1]))
+
+
 def _run_blocks(x, params: Params, cfg: DecoderLMConfig, caches: KVCache | None, pos, cos, sin, mask):
     """The layer loop (the JAX package's ``_scan_blocks``)."""
-    layers = params["layers"]
-    for i in range(n_stacked(layers)):
+    for i, lp in enumerate(unstack_layers(params["layers"])):
         cache = KVCache(caches.k[i], caches.v[i]) if caches is not None else None
-        x, _ = _block(x, layer_slice(layers, i), cfg, cache, pos, cos, sin, mask)
+        x, _ = _block(x, lp, cfg, cache, pos, cos, sin, mask)
     return x, caches
 
 
@@ -181,6 +288,46 @@ def _logits(x, params: Params, cfg: DecoderLMConfig) -> torch.Tensor:
 
 def _rope(cfg: DecoderLMConfig, device):
     return rope_frequencies(cfg.head_dim, cfg.max_seq_len, cfg.rope_theta, device)
+
+
+def _on_mesh_of(ref: torch.Tensor, *tensors: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """*tensors* (the rope tables, masks, tokens and targets the forward and
+    the loss make or take) lifted to replicated DTensors on the mesh of
+    *ref*, a parameter, when the parameters are DTensors: DTensor refuses to
+    mix a plain tensor with a DTensor.  Unchanged on the single-device path
+    and for tensors that already are DTensors."""
+    dtensor = _dtensor(ref)
+    if dtensor is None:
+        return tensors
+    mesh = ref.device_mesh
+    return tuple(t if isinstance(t, dtensor.DTensor)
+                 else dtensor.DTensor.from_local(t.to(ref.device), mesh, [dtensor.Replicate()] * mesh.ndim,
+                                                 run_check=False)
+                 for t in tensors)
+
+
+def _hidden_full(params: Params, cfg: DecoderLMConfig, x) -> torch.Tensor:
+    """The causal layer stack over a full sequence x (B, T, D), no cache."""
+    t = x.shape[1]
+    cos_full, sin_full = _rope(cfg, x.device)
+    cos, sin, mask = _on_mesh_of(params["embed"], cos_full[:t], sin_full[:t], causal_mask(t, t, 0, x.device))
+    x, _ = _run_blocks(x, params, cfg, None, None, cos, sin, mask)
+    return x
+
+
+def forward(params: Params, cfg: DecoderLMConfig, tokens, positions=None) -> torch.Tensor:
+    """Full-sequence causal forward (training / scoring). tokens: (B, T) int.
+    Returns float32 logits (B, T, V).  Positions are 0..T-1: *positions* is
+    accepted and unused, as in the JAX package."""
+    (tokens,) = _on_mesh_of(params["embed"], tokens.long())
+    return _logits(_hidden_full(params, cfg, _embed(params["embed"], tokens).to(cfg.dtype)), params, cfg)
+
+
+def forward_embeds(params: Params, cfg: DecoderLMConfig, embeds) -> torch.Tensor:
+    """Full-sequence causal forward over precomputed embeddings (B, T, D),
+    the multimodal splice path. Returns float32 logits (B, T, V)."""
+    (embeds,) = _on_mesh_of(params["embed"], embeds)
+    return _logits(_hidden_full(params, cfg, embeds.to(cfg.dtype)), params, cfg)
 
 
 def _hidden_prefill(params: Params, cfg: DecoderLMConfig, x, state: DecodeState, prompt_len):
@@ -247,3 +394,106 @@ def decode_chunk(params: Params, cfg: DecoderLMConfig, token, state: DecodeState
         flags.append(nxt[0] == eos_id)
         tok = nxt
     return torch.stack(toks), torch.stack(flags), tok, state
+
+
+def loss_fn(params: Params, cfg: DecoderLMConfig, tokens, targets, mask) -> torch.Tensor:
+    """Mean next-token cross-entropy over *mask* (training path)."""
+    logits = forward(params, cfg, tokens)
+    targets, mask = _on_mesh_of(params["embed"], targets.long(), mask)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+    mask = mask.float()
+    return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+
+
+def value_and_grad(params: Params, cfg: DecoderLMConfig, tokens, targets, mask) -> tuple[torch.Tensor, Params]:
+    """(loss, gradients): the loss of :func:`loss_fn` and, by
+    ``torch.autograd``, its gradient for every floating leaf (None for the
+    others).  The parameters stay as they are: the loss is taken over
+    detached leaves that require grad."""
+    leaves, spec = pytree.tree_flatten(params)
+    diff = [p.is_floating_point() for p in leaves]
+    live = [p.detach().requires_grad_(True) if d else p for p, d in zip(leaves, diff)]
+    with torch.enable_grad():
+        loss = loss_fn(pytree.tree_unflatten(live, spec), cfg, tokens, targets, mask)
+        grads = iter(torch.autograd.grad(loss, [p for p, d in zip(live, diff) if d]))
+    return loss.detach(), pytree.tree_unflatten([next(grads) if d else None for d in diff], spec)
+
+
+def sgd_train_step(params: Params, cfg: DecoderLMConfig, tokens, targets, mask, lr: float = 1e-4):
+    """One SGD step: (loss, new params).  Floating leaves take
+    ``(p - lr * g) in f32``, cast back to their dtype; other leaves pass
+    through.  The AdamW step is :mod:`s2s_tpu_torch.parallel.training`'s."""
+    loss, grads = value_and_grad(params, cfg, tokens, targets, mask)
+    with torch.no_grad():
+        new_params = pytree.tree_map(lambda p, g: p if g is None else (p - lr * g.float()).to(p.dtype),
+                                     params, grads)
+    return loss, new_params
+
+
+# ── HF checkpoint conversion ─────────────────────────────────────────
+
+
+def _rope_perm(hd: int) -> np.ndarray:
+    """Row order taking Hugging Face's half-split rope layout to the
+    interleaved one: pair i = (half row i, half row i + hd/2)."""
+    perm = np.empty(hd, np.int64)
+    perm[0::2] = np.arange(hd // 2)
+    perm[1::2] = np.arange(hd // 2) + hd // 2
+    return perm
+
+
+def convert_hf_state_dict(state_dict: dict[str, Any], cfg: DecoderLMConfig) -> Params:
+    """Map a HF Llama/SmolLM2-style ``state_dict`` (numpy arrays or tensors)
+    onto the parameter tree, on the CPU.  HF stores (out, in), so
+    projections transpose; q/k rows are permuted from HF's half-split rope
+    to the interleaved pairs :func:`apply_rope` rotates (and the Qwen3 q/k
+    norm weights with them: RMS is permutation-equivariant); layers stack.
+    The same trees, bit for bit, as the JAX package's converter."""
+    perm = _rope_perm(cfg.head_dim)
+
+    def arr(name) -> np.ndarray:
+        w = state_dict[name]
+        if isinstance(w, torch.Tensor):  # bf16 widens to f32 exactly; numpy has no bf16 of its own
+            w = w.detach().cpu()
+            return (w.float() if w.dtype == torch.bfloat16 else w).numpy()
+        w = np.asarray(w)
+        return w.astype(np.float32) if w.dtype.name == "bfloat16" else w
+
+    def tensor(w: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(w)).to(cfg.dtype)
+
+    def t(name):
+        return tensor(arr(name).T)
+
+    def rope_permuted(name, n_heads):
+        w = arr(name)  # (n_heads*hd, d_in)
+        hd = w.shape[0] // n_heads
+        return tensor(w.reshape(n_heads, hd, -1)[:, _rope_perm(hd), :].reshape(n_heads * hd, -1).T)
+
+    layers = []
+    for i in range(cfg.n_layers):
+        p = f"model.layers.{i}."
+        layer = {
+            "attn_norm": tensor(arr(p + "input_layernorm.weight")),
+            "wq": rope_permuted(p + "self_attn.q_proj.weight", cfg.n_heads),
+            "wk": rope_permuted(p + "self_attn.k_proj.weight", cfg.n_kv_heads),
+            "wv": t(p + "self_attn.v_proj.weight"),
+            "wo": t(p + "self_attn.o_proj.weight"),
+            "mlp_norm": tensor(arr(p + "post_attention_layernorm.weight")),
+            "w_gate": t(p + "mlp.gate_proj.weight"),
+            "w_up": t(p + "mlp.up_proj.weight"),
+            "w_down": t(p + "mlp.down_proj.weight"),
+        }
+        if cfg.qk_norm:
+            layer["q_norm"] = tensor(arr(p + "self_attn.q_norm.weight")[perm])
+            layer["k_norm"] = tensor(arr(p + "self_attn.k_norm.weight")[perm])
+        layers.append(layer)
+    params: Params = {
+        "embed": tensor(arr("model.embed_tokens.weight")),
+        "layers": {name: torch.stack([layer[name] for layer in layers]) for name in layers[0]},
+        "final_norm": tensor(arr("model.norm.weight")),
+    }
+    if not cfg.tie_embeddings and "lm_head.weight" in state_dict:
+        params["lm_head"] = t("lm_head.weight")
+    return params

@@ -46,13 +46,20 @@ def to_tensor(value: Any, device: torch.device | str) -> torch.Tensor:
 def tree_to_torch(tree: Any, device: torch.device | str) -> Any:
     """Every array or tensor leaf -> tensor on *device*; a quantized weight
     (the JAX package's or the port's, matched by type name) -> the port's
-    type of that name, field by field; a module (the port's BiLSTMs) -> a
-    copy on *device*."""
+    type of that name, field by field; optax's ``ScaleByAdamState`` (the
+    Adam part of an ``optax.adamw`` state) -> the port's
+    :class:`~s2s_tpu_torch.parallel.training.ScaleByAdamState`, its mu and
+    nu as parameter trees; a module (the port's BiLSTMs) -> a copy on
+    *device*."""
     if isinstance(tree, torch.nn.Module):
         return copy.deepcopy(tree).to(device)
     cls = _QUANT_BY_NAME.get(type(tree).__name__)
     if cls is not None:
         return cls(*(to_tensor(part, device) for part in tree))
+    if type(tree).__name__ == "ScaleByAdamState":  # optax's Adam state (count, mu, nu)
+        from s2s_tpu_torch.parallel.training import ScaleByAdamState
+
+        return ScaleByAdamState(*(tree_to_torch(part, device) for part in tree))
     if isinstance(tree, dict):
         return {k: tree_to_torch(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

@@ -150,7 +150,7 @@ builder.py cli.py
 models/chattts.py models/common.py models/decoder_lm.py models/kokoro.py models/mimi.py models/parakeet.py
 models/pocket_tts.py models/qwen3_tts.py models/silero_vad.py models/vits.py models/whisper.py
 ops/decode_attention.py ops/int4_matmul.py ops/int8_matmul.py ops/istft.py ops/quant.py
-parallel/batched_decode.py
+parallel/batched_decode.py parallel/mesh.py parallel/training.py
 runtime/profiler.py
 """.split()
 
