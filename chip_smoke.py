@@ -95,12 +95,20 @@ Phases, each printed on its own line:
    against the same code on the CPU;
 15. ``whisper_serve``: the single-session serve with energy VAD, Smart Turn
    on and full-width distil-large-v3 Whisper (``WHISPER_FLAGS``), after the
-   earlier serves shut down: one text turn, then voice turns (``VOICE_TONES_HZ``,
+   earlier serves shut down, from checkpoints the conversion tool wrote
+   (``write_serve_checkpoints``: SmolLM2-1.7B as BF16 safetensors,
+   distil-large-v3 as F16 safetensors, Smart Turn as an F32 ``.pt``, drawn
+   at the published shapes from torch seeds, each converted by ``python -m
+   s2s_tpu_torch.tools.convert_checkpoint`` in a subprocess), so the
+   single-session LM is int8: one text turn, then voice turns (``VOICE_TONES_HZ``,
    up to the first one answered), each with a non-empty transcription; the
    answered one must bring reply audio and ``response.done``; Smart Turn
-   predictions with none failed, and launches of both new kernels that
+   predictions with none failed, launches of both encoder kernels that
    match the encodes (one flash launch per encoder layer, one log-mel per
-   encode);
+   encode) and int8 launches > 0; then the served weights against their
+   sources (``check_served_weights``) and a ``checkpoint`` line (each
+   file's bytes, each conversion's seconds and peak RSS, each load's
+   seconds at build);
 16. ``silero`` (run after phase 4): ``BatchedSileroVAD(max_slots=16)`` on
    the card against the plain masked step on the CPU with the same
    parameters over 64 ticks of noise, tones and silence, the active slots
@@ -165,7 +173,8 @@ Phases, each printed on its own line:
    cascade with ``--tts pocket`` (``PocketTTSConfig()`` with ``MimiConfig()``,
    bf16 LM, f32 Mimi; its output conv scaled by ``POCKET_MIMI_OUT_SCALE``
    so random audio clears the silence trim) or ``--tts chatTTS``
-   (``ChatTTSConfig()``, f32), with the same gate; each served synthesis
+   (``ChatTTSConfig()``, f32), each LM at ``POCKET_SERVE_LAYERS`` or
+   ``CHATTTS_SERVE_LAYERS`` (half its depth; ``served_tts_model``), with the same gate; each served synthesis
    timed inside the model's ``stream``; profiles of ``SYNTH_TEXTS`` (and,
    for Pocket, ``TEXT`` through a random voice prefix of
    ``POCKET_VOICE_ROWS`` rows; ``PROFILED_TEXTS`` for both, ``TEXT`` alone
@@ -192,11 +201,18 @@ Phases, each printed on its own line:
    launches per attempt, answered with audio; a failed image decode fails
    the phase), a text turn with no tower run; then a Paraformer
    forward's, the tower's and DeepFilter's device and wall times;
-27. ``tiny_train_parity`` (after phase 26): the tiny f32 decoder's training
+27. ``convert_parity`` (after phase 25): every converter of the port
+   (``convert_cases``: each family's fixture at its tiny config, and bf16
+   configs of the decoder LM, Whisper, Qwen3-TTS and Parakeet) on the card,
+   every leaf landing there, its arrays by ``array_digests`` equal to
+   ``CONVERTED_DIGESTS`` (the JAX converters' on the CPU); F32, F16 and
+   BF16 safetensors files through the tool's writer and reader, bit for
+   bit;
+28. ``tiny_train_parity`` (after phase 26): the tiny f32 decoder's training
    path on the card against the CPU, three AdamW steps through
    ``make_sharded_train_step`` on a 1 x 1 mesh of each and three
    ``sgd_train_step``s, losses and parameters within ``TINY_TRAIN_REL``;
-28. ``train``: full-width SmolLM2-1.7B, random weights from a seed, takes
+29. ``train``: full-width SmolLM2-1.7B, random weights from a seed, takes
    ``TRAIN_STEPS`` AdamW steps on a 1 x 1 mesh of the card
    (``make_mesh()``) over a ``TRAIN_BATCH`` batch from a numpy seed: each
    step's loss (finite, the last below the first), wall and device time,
@@ -208,7 +224,7 @@ Phases, each printed on its own line:
 After every serve a ``serve_memory`` line gives what stays allocated on the
 card once the phase has returned, before and after a garbage collection.
 
-Phases 3, 4, 8, 9, 10, 12, 13, 14, 21, 23, 25 and 27 run with TF32 off, so that f32
+Phases 3, 4, 8, 9, 10, 12, 13, 14, 21, 23, 25, 27 and 28 run with TF32 off, so that f32
 products are compared in full f32; the serves and phases 16-20 run with
 torch's defaults, as ``s2s_tpu_torch.cli`` does (cuDNN's convolutions, so
 Kokoro's and VITS's, in TF32).  A ``seconds`` line gives each
@@ -222,7 +238,9 @@ their main paths' serves; the int8 and decode-attention entries also carry
 the deployment, Kokoro, MMS, Pocket and ChatTTS serves' as
 ``deployment_serve_launches``, ``kokoro_serve_launches``,
 ``mms_serve_launches``, ``pocket_serve_launches`` and
-``chattts_serve_launches``; the log-mel's ``launches_by_caller`` counts
+``chattts_serve_launches``, and the int8 entry the Whisper serve's as
+``whisper_serve_launches`` (those on the LM's weights as
+``whisper_serve_lm_launches``); the log-mel's ``launches_by_caller`` counts
 those four TTS serves and the Paraformer serve too, the flash kernel's the
 Whisper and the Paraformer/VLM serves, and its ``siglip`` entry SigLIP's
 shape); the last line is
@@ -240,6 +258,7 @@ import gc
 import json
 import logging
 import math
+import os
 import struct
 import subprocess
 import sys
@@ -427,6 +446,12 @@ CHATTTS_TRACED_STEPS = 180
 #: (the long text's two syntheses a family took about 90 s of the run; PERF.md
 #: keeps their numbers)
 PROFILED_TEXTS = (TEXT,)
+#: the Pocket-TTS and ChatTTS serves' LM depths: (backbone, depformer)
+#: layers of 16 and 6, and ChatTTS's GPT of 20, halved (their widths kept)
+#: so the whole run keeps its time since the Whisper cell converts its
+#: checkpoints (PERF.md, the converters' finding)
+POCKET_SERVE_LAYERS = (8, 3)
+CHATTTS_SERVE_LAYERS = 10
 #: the served TTS families: the phase name and the model's method each
 #: served synthesis goes through (timed; Pocket and ChatTTS stream)
 TTS_SERVES = {"kokoro": ("kokoro_serve", "synthesize"), "facebookMMS": ("mms_serve", "synthesize"),
@@ -478,6 +503,34 @@ TRAIN_LR = 1e-4
 #: bf16 product over 1 row or SCORE_PROMPT rows may round otherwise)
 SCORE_PROMPT = 100
 SCORE_ULPS = 4
+#: the converters' parity cases (``convert_cases``): the JAX converters' output
+#: on the CPU, by key, dtype, shape and SHA-256 (``array_digests``), written by
+#: ``python tests/test_torch_port_convert.py``
+CONVERTED_DIGESTS = "tests/data/converted_digests.json"
+#: the cases' tiny configs, shared with the CPU test's JAX side: the decoder
+#: LM fixtures (``tests/test_torch_parity.py``'s Llama and Qwen3 configs),
+#: the Qwen3-TTS talker and code predictor (the ``qwen3tts_parity.npz``
+#: predictor's width, the talker drawn at it), its vocoder, Parakeet
+LLAMA_FIELDS = dict(vocab_size=512, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2, d_ff=128, max_seq_len=128,
+                    rope_theta=10000.0, rms_eps=1e-5, tie_embeddings=True)
+QWEN3_FIELDS = dict(LLAMA_FIELDS, rms_eps=1e-6, qk_norm=True, head_dim_override=32)
+TTS_CP_FIELDS = dict(vocab_size=1, d_model=32, n_layers=2, n_heads=4, n_kv_heads=2, d_ff=64, max_seq_len=16,
+                     rope_theta=10000.0, rms_eps=1e-6, tie_embeddings=False, qk_norm=True, head_dim_override=16)
+TTS_LM_FIELDS = dict(TTS_CP_FIELDS, max_seq_len=256)
+C2W_FIELDS = dict(codebook_size=64, num_quantizers=4, hidden=32, n_layers=1, n_heads=2, d_ff=64, sliding_window=8,
+                  upsampling_ratios=(2, 2), upsample_rates=(4, 3), decoder_dim=32)
+TTS_FIELDS = dict(text_vocab=256, codec_vocab=72, codec_bos_id=65, codec_eos_id=66)
+PARAKEET_FIELDS = dict(n_mels=32, d_model=64, n_layers=2, n_heads=4, d_ff=128, sub_channels=32, vocab_size=64,
+                       pred_hidden=32, pred_layers=1, joint_hidden=32, max_enc_frames=16)
+#: the Whisper serve's checkpoints, drawn at the published shapes and dtypes
+#: from a torch seed and converted by ``python -m s2s_tpu_torch.tools.convert_checkpoint``:
+#: family -> (source file, its dtype); written under CHECKPOINT_DIR (ignored
+#: by git) and removed after the serve
+CHECKPOINT_DIR = "build/chip_smoke_checkpoints"
+CHECKPOINTS = {"smollm2-1.7b": ("smollm2-1.7b.safetensors", torch.bfloat16),
+               "distil-large-v3": ("distil-large-v3.safetensors", torch.float16),
+               "smart-turn": ("smart-turn.pt", torch.float32)}
+CONVERT_TIMEOUT_S = 300
 L2_BYTES = 50 << 20
 #: H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, dense bf16 FLOP/s, dense int8 OP/s
 HBM_BPS = 3.35e12
@@ -522,17 +575,6 @@ def gemv_bound(b: int, k: int, n: int, weight_bytes: float, peak_ops: float) -> 
     """The bound of one decode-shaped linear: the weight, x (bf16), the
     scale (f32) and the output (bf16) each moved once; 2*B*K*N operations."""
     return bound(weight_bytes + b * k * 2 + n * 4 + b * n * 2, 2 * b * k * n, peak_ops)
-
-
-def flat_tree(tree, prefix: str = "") -> dict[str, np.ndarray]:
-    """A nested dict/list of tensors or arrays as a converted checkpoint's
-    ``.npz`` entries: ``"a/b/0/c"`` -> a numpy array (what
-    ``s2s_tpu_torch.registry.unflatten_params`` reads back)."""
-    if isinstance(tree, dict):
-        return {k: v for key, sub in tree.items() for k, v in flat_tree(sub, f"{prefix}{key}/").items()}
-    if isinstance(tree, (list, tuple)):
-        return {k: v for i, sub in enumerate(tree) for k, v in flat_tree(sub, f"{prefix}{i}/").items()}
-    return {prefix[:-1]: tree.detach().cpu().numpy() if isinstance(tree, torch.Tensor) else np.asarray(tree)}
 
 
 def png_bytes(rgb: np.ndarray) -> bytes:
@@ -1796,6 +1838,373 @@ def tiny_whisper_parity_phase(dev: torch.device) -> None:
           log_mel_launches=launches[1])
 
 
+# ── checkpoint conversion ────────────────────────────────────────────
+
+
+def fixture_state_dict(name: str) -> dict[str, np.ndarray]:
+    """``tests/data/<name>_parity.npz``'s source state dict: its ``sd__``
+    entries, as ``tests/test_torch_parity.py::load_fixture`` reads them."""
+    data = np.load(f"tests/data/{name}_parity.npz")
+    return {k[len("sd__"):]: data[k] for k in data.files if k.startswith("sd__")}
+
+
+def _drawer(gen: torch.Generator, dtype: torch.dtype):
+    """Weights N(0, 0.02) and norm gains 1 + N(0, 0.1) in *dtype* on *gen*'s device."""
+    def w(*shape):
+        return (torch.randn(shape, generator=gen, device=gen.device) * 0.02).to(dtype)
+
+    def gain(n):
+        return (1.0 + 0.1 * torch.randn((n,), generator=gen, device=gen.device)).to(dtype)
+
+    return w, gain
+
+
+def hf_decoder_lm_state_dict(cfg, gen: torch.Generator, dtype: torch.dtype) -> dict[str, torch.Tensor]:
+    """A Hugging Face Llama state dict (Qwen3's, with ``cfg.qk_norm``) at
+    *cfg*'s shapes in *dtype*, on *gen*'s device; ``lm_head.weight`` unless
+    the embeddings are tied (SmolLM2 ties them)."""
+    w, gain = _drawer(gen, dtype)
+    d, hd = cfg.d_model, cfg.head_dim
+    sd = {"model.embed_tokens.weight": w(cfg.vocab_size, d)}
+    for i in range(cfg.n_layers):
+        p = f"model.layers.{i}."
+        sd[p + "input_layernorm.weight"] = gain(d)
+        sd[p + "self_attn.q_proj.weight"] = w(cfg.n_heads * hd, d)
+        sd[p + "self_attn.k_proj.weight"] = w(cfg.n_kv_heads * hd, d)
+        sd[p + "self_attn.v_proj.weight"] = w(cfg.n_kv_heads * hd, d)
+        sd[p + "self_attn.o_proj.weight"] = w(d, cfg.n_heads * hd)
+        if cfg.qk_norm:
+            sd[p + "self_attn.q_norm.weight"] = gain(hd)
+            sd[p + "self_attn.k_norm.weight"] = gain(hd)
+        sd[p + "post_attention_layernorm.weight"] = gain(d)
+        sd[p + "mlp.gate_proj.weight"] = w(cfg.d_ff, d)
+        sd[p + "mlp.up_proj.weight"] = w(cfg.d_ff, d)
+        sd[p + "mlp.down_proj.weight"] = w(d, cfg.d_ff)
+    sd["model.norm.weight"] = gain(d)
+    if not cfg.tie_embeddings:
+        sd["lm_head.weight"] = w(cfg.vocab_size, d)
+    return sd
+
+
+def hf_whisper_state_dict(cfg, gen: torch.Generator, dtype: torch.dtype, prefix: str = "model.",
+                          encoder_only: bool = False) -> dict[str, torch.Tensor]:
+    """A transformers ``WhisperForConditionalGeneration`` state dict at
+    *cfg*'s shapes in *dtype* on *gen*'s device (the encoder alone with
+    *encoder_only*, its keys under ``<prefix>encoder.``)."""
+    w, gain = _drawer(gen, dtype)
+    d = cfg.d_model
+
+    def norm(p):
+        return {p + "weight": gain(d), p + "bias": w(d)}
+
+    def attn(p):
+        return {p + "q_proj.weight": w(d, d), p + "q_proj.bias": w(d), p + "k_proj.weight": w(d, d),
+                p + "v_proj.weight": w(d, d), p + "v_proj.bias": w(d),
+                p + "out_proj.weight": w(d, d), p + "out_proj.bias": w(d)}
+
+    def block(p, cross):
+        out = {**norm(p + "self_attn_layer_norm."), **attn(p + "self_attn."), **norm(p + "final_layer_norm."),
+               p + "fc1.weight": w(4 * d, d), p + "fc1.bias": w(4 * d),
+               p + "fc2.weight": w(d, 4 * d), p + "fc2.bias": w(d)}
+        if cross:
+            out.update({**norm(p + "encoder_attn_layer_norm."), **attn(p + "encoder_attn.")})
+        return out
+
+    e = prefix + "encoder."
+    sd = {e + "conv1.weight": w(d, cfg.n_mels, 3), e + "conv1.bias": w(d),
+          e + "conv2.weight": w(d, d, 3), e + "conv2.bias": w(d),
+          e + "embed_positions.weight": w(cfg.n_audio_ctx, d)}
+    for i in range(cfg.n_enc_layers):
+        sd.update(block(f"{e}layers.{i}.", False))
+    sd.update(norm(e + "layer_norm."))
+    if not encoder_only:
+        t = prefix + "decoder."
+        sd.update({t + "embed_tokens.weight": w(cfg.vocab_size, d), t + "embed_positions.weight": w(cfg.n_text_ctx, d)})
+        for i in range(cfg.n_dec_layers):
+            sd.update(block(f"{t}layers.{i}.", True))
+        sd.update(norm(t + "layer_norm."))
+    return sd
+
+
+def smart_turn_state_dict(cfg, gen: torch.Generator, dtype: torch.dtype) -> dict[str, torch.Tensor]:
+    """Smart Turn's checkpoint: a Whisper encoder under ``encoder.`` and its
+    ``classifier`` head over the pooled output."""
+    w, _ = _drawer(gen, dtype)
+    sd = hf_whisper_state_dict(cfg, gen, dtype, prefix="", encoder_only=True)
+    return {**sd, "classifier.weight": w(1, cfg.d_model), "classifier.bias": w(1)}
+
+
+def silero_state_dict(seed: int = 0) -> dict[str, np.ndarray]:
+    """silero-vad v5's state dict at its published shapes (the four
+    re-parametrized convolutions, the LSTM cell, the 1x1 head), from a numpy
+    seed."""
+    rng = np.random.default_rng(seed)
+
+    def w(*shape):
+        return (rng.standard_normal(shape) * 0.1).astype(np.float32)
+
+    sd = {}
+    for i, (cin, cout) in enumerate(((129, 128), (128, 64), (64, 64), (64, 128))):
+        sd[f"_model.encoder.{i}.reparam_conv.weight"] = w(cout, cin, 3)
+        sd[f"_model.encoder.{i}.reparam_conv.bias"] = w(cout)
+    for name, shape in (("weight_ih", (512, 128)), ("weight_hh", (512, 128)), ("bias_ih", (512,)),
+                        ("bias_hh", (512,))):
+        sd[f"_model.decoder.rnn.{name}"] = w(*shape)
+    sd["_model.decoder.decoder.2.weight"] = w(1, 128, 1)
+    sd["_model.decoder.decoder.2.bias"] = w(1)
+    return sd
+
+
+def smart_turn_fixture_state_dict() -> dict[str, np.ndarray]:
+    """The Whisper fixture's encoder plus a seeded classifier, as
+    ``tests/test_torch_parity.py::test_smart_turn_converter_and_head``."""
+    sd = {k: v for k, v in fixture_state_dict("whisper").items() if ".encoder." in k}
+    rng = np.random.RandomState(0)
+    sd["classifier.weight"] = rng.randn(1, 64).astype(np.float32) * 0.1
+    sd["classifier.bias"] = np.asarray([0.2], np.float32)
+    return sd
+
+
+def qwen3_tts_fixture_state_dict() -> dict[str, np.ndarray]:
+    """A whole Qwen3-TTS checkpoint at ``TTS_*_FIELDS``: the code predictor
+    and vocoder of ``qwen3tts_parity.npz`` (transformers' modules), a talker
+    at the predictor's width drawn under Qwen3's names (its embedding rows
+    the codec vocabulary, its head as ``codec_head``) and a text embedding;
+    the speaker tables are absent, so the converter's zero defaults run."""
+    from s2s_tpu_torch.models.decoder_lm import DecoderLMConfig
+
+    cfg = DecoderLMConfig(**dict(TTS_LM_FIELDS, vocab_size=TTS_FIELDS["codec_vocab"]))
+    gen = torch.Generator().manual_seed(3)
+    talker = hf_decoder_lm_state_dict(cfg, gen, torch.float32)
+    sd = {("talker.codec_head.weight" if k == "lm_head.weight" else "talker." + k): v.numpy()
+          for k, v in talker.items()}
+    sd["talker.text_embed.weight"] = (torch.randn((TTS_FIELDS["text_vocab"], cfg.d_model), generator=gen)
+                                      * 0.02).numpy()
+    return {**sd, **fixture_state_dict("qwen3tts")}
+
+
+def convert_cases() -> dict:
+    """The converters' parity cases: name -> (the source state dict's maker,
+    the port's converter on (state dict, device)).  Every ``--family`` of
+    the conversion tool reaches one of these converters; the fixtures' tiny
+    configs, f32, and bf16 configs of the decoder LM, Whisper, Qwen3-TTS and
+    Parakeet.  ``tests/test_torch_port_convert.py`` holds each against the
+    JAX converter with the same config."""
+    from s2s_tpu_torch.models import (
+        chattts, decoder_lm, deepfilter, kokoro, mimi, paraformer, parakeet, pocket_tts, qwen3_tts, silero_vad,
+        vision, vits, whisper,
+    )
+    from s2s_tpu_torch.vad import smart_turn
+
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def lm(fields, dtype):
+        return decoder_lm.DecoderLMConfig(**fields, dtype=dtype)
+
+    def tts(dtype):
+        return qwen3_tts.Qwen3TTSConfig(**TTS_FIELDS, lm=lm(TTS_LM_FIELDS, dtype), cp=lm(TTS_CP_FIELDS, dtype),
+                                        c2w=qwen3_tts.Code2WavConfig(**C2W_FIELDS, dtype=dtype), dtype=dtype)
+
+    def whisper_tiny(dtype):
+        return dataclasses.replace(whisper.WhisperConfig.test_tiny(), dtype=dtype)
+
+    def fixture(name):
+        return lambda: fixture_state_dict(name)
+
+    cases = {}
+    for suffix, dt in (("", f32), ("-bf16", bf16)):
+        cases.update({
+            f"llama{suffix}": (fixture("llama"), lambda sd, d, dt=dt: decoder_lm.convert_hf_state_dict(
+                sd, lm(LLAMA_FIELDS, dt), d)),
+            f"whisper{suffix}": (fixture("whisper"), lambda sd, d, dt=dt: whisper.convert_hf_state_dict(
+                sd, whisper_tiny(dt), device=d)),
+            f"qwen3-tts{suffix}": (qwen3_tts_fixture_state_dict, lambda sd, d, dt=dt: qwen3_tts.convert_state_dict(
+                sd, tts(dt), d)),
+            f"parakeet{suffix}": (fixture("parakeet"), lambda sd, d, dt=dt: parakeet.convert_state_dict(
+                sd, parakeet.ParakeetConfig(**PARAKEET_FIELDS, dtype=dt), d)),
+        })
+    cases.update({
+        "qwen3": (fixture("qwen3"), lambda sd, d: decoder_lm.convert_hf_state_dict(sd, lm(QWEN3_FIELDS, f32), d)),
+        "smart-turn": (smart_turn_fixture_state_dict,
+                       lambda sd, d: smart_turn.convert_state_dict(sd, whisper_tiny(f32), d)),
+        "silero-vad": (silero_state_dict, silero_vad.convert_silero_state_dict),
+        "paraformer": (fixture("paraformer"), lambda sd, d: paraformer.convert_state_dict(
+            sd, paraformer.ParaformerConfig.test_tiny(), d)),
+        "smolvlm-vision": (fixture("smolvlm"), lambda sd, d: vision.convert_hf_state_dict(
+            sd, vision.VisionConfig.test_tiny(), d)),
+        "mms-vits": (fixture("vits"), lambda sd, d: vits.convert_hf_state_dict(sd, vits.VitsConfig.test_tiny(), d)),
+        "kokoro": (fixture("kokoro"), lambda sd, d: kokoro.convert_state_dict(sd, kokoro.KokoroConfig.test_tiny(), d)),
+        "mimi": (fixture("mimi"), lambda sd, d: mimi.convert_state_dict(sd, mimi.MimiConfig.tiny(), d)),
+        "mimi-hf": (fixture("mimi_hf"), lambda sd, d: mimi.convert_hf_state_dict(sd, mimi.MimiConfig.tiny(), d)),
+        "pocket-tts": (fixture("pocket"), lambda sd, d: pocket_tts.convert_state_dict(
+            sd, pocket_tts.PocketTTSConfig.tiny(), d)),
+        "chattts": (fixture("chattts"), lambda sd, d: chattts.convert_state_dict(sd, chattts.ChatTTSConfig.tiny(), d)),
+        "deepfilter": (fixture("deepfilter"), lambda sd, d: deepfilter.convert_state_dict(
+            sd, deepfilter.DeepFilterConfig.tiny(), d)),
+    })
+    return cases
+
+
+def array_digests(flat: dict[str, np.ndarray]) -> list[list]:
+    """[key, dtype, shape, SHA-256 of the bytes] of each array of a
+    flattened checkpoint, in key order."""
+    import hashlib
+
+    return [[k, v.dtype.str, list(v.shape), hashlib.sha256(np.ascontiguousarray(v).tobytes()).hexdigest()]
+            for k, v in sorted(flat.items())]
+
+
+def _tree_devices(tree) -> set[str]:
+    return {str(leaf.device) for leaf in pytree.tree_leaves(tree) if isinstance(leaf, torch.Tensor)}
+
+
+def convert_parity_phase(dev: torch.device) -> None:
+    """Every converter on the card against the JAX converters: each case of
+    ``convert_cases`` converted with ``device=dev`` (every leaf must land
+    there), flattened by the conversion tool and compared by
+    ``array_digests`` with ``CONVERTED_DIGESTS``; then F32, F16 and BF16
+    safetensors files (with I64 and BOOL entries) through the tool's writer
+    and reader, bit for bit."""
+    from s2s_tpu_torch.tools import convert_checkpoint as cc
+
+    with open(CONVERTED_DIGESTS) as f:
+        want = json.load(f)
+    cases = convert_cases()
+    check(sorted(cases) == sorted(want), f"the digests cover the cases: {sorted(cases)} vs {sorted(want)}")
+    mismatched, arrays = {}, 0
+    t0 = time.perf_counter()
+    for name, (make, convert) in cases.items():
+        tree = convert(make(), dev)
+        check(_tree_devices(tree) == {str(dev)}, f"{name}: converted on {dev}: {_tree_devices(tree)}")
+        got = array_digests(cc.flatten(tree))
+        arrays += len(got)
+        if got != want[name]:
+            keys = {row[0]: row for row in want[name]}
+            mismatched[name] = [row for row in got if keys.get(row[0]) != row][:3] or "missing keys"
+    convert_s = time.perf_counter() - t0
+    check(not mismatched, f"the converters on the card give the JAX converters' arrays: {mismatched}")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    round_trips = {}
+    os.makedirs(CHECKPOINT_DIR, exist_ok=True)
+    for dt in (torch.float32, torch.float16, torch.bfloat16):
+        tensors = {"w": torch.randn((37, 5), generator=gen, device=dev).to(dt),
+                   "ids": torch.randint(-(1 << 40), 1 << 40, (9,), generator=gen, device=dev),
+                   "mask": torch.rand((3, 4), generator=gen, device=dev) > 0.5}
+        path = os.path.join(CHECKPOINT_DIR, f"round_trip_{str(dt)[6:]}.safetensors")
+        cc.save_safetensors(path, tensors)
+        back = cc.SafetensorsFile(path)
+        same = sorted(back) == sorted(tensors) and all(
+            back[k].dtype == t.dtype and torch.equal(back[k], t.cpu()) for k, t in tensors.items())
+        check(same, f"safetensors {dt}: the reader gives back what the writer wrote")
+        round_trips[str(dt)[6:]] = os.path.getsize(path)
+        os.remove(path)
+    phase("convert_parity", cases=len(cases), arrays=arrays, bf16_cases=sorted(k for k in cases if "bf16" in k),
+          convert_s=convert_s, safetensors_round_trip_bytes=round_trips)
+
+
+def write_serve_checkpoints(dev: torch.device) -> dict[str, dict]:
+    """The Whisper serve's sources (``CHECKPOINTS``) at the published shapes
+    and dtypes, drawn on the card from torch seeds and written under
+    ``CHECKPOINT_DIR`` by the conversion tool's safetensors writer (the LM and
+    Whisper) or ``torch.save`` (Smart Turn); then each converted by the tool
+    on the card, as a user runs it, the three subprocesses at once.  Returns,
+    per family, the source and output paths, their bytes, the source's draw
+    and write seconds, the conversion's seconds (its process's start to its
+    end, polled every 50 ms) and the tool's peak RSS and its RSS before
+    converting (the CUDA context included)."""
+    import re
+
+    from s2s_tpu_torch.models.decoder_lm import DecoderLMConfig
+    from s2s_tpu_torch.models.whisper import WhisperConfig
+    from s2s_tpu_torch.tools import convert_checkpoint as cc
+
+    os.makedirs(CHECKPOINT_DIR, exist_ok=True)
+    makers = {
+        "smollm2-1.7b": lambda gen, dt: hf_decoder_lm_state_dict(DecoderLMConfig.smollm2_1_7b(), gen, dt),
+        "distil-large-v3": lambda gen, dt: hf_whisper_state_dict(WhisperConfig.distil_large_v3(), gen, dt),
+        "smart-turn": lambda gen, dt: smart_turn_state_dict(WhisperConfig.tiny(), gen, dt),
+    }
+    out, procs = {}, {}
+    for seed, (family, (name, dtype)) in enumerate(CHECKPOINTS.items()):
+        src = os.path.join(CHECKPOINT_DIR, name)
+        t0 = time.perf_counter()
+        sd = makers[family](torch.Generator(device=dev).manual_seed(100 + seed), dtype)
+        if src.endswith(".safetensors"):
+            cc.save_safetensors(src, sd)
+        else:
+            torch.save({k: v.cpu() for k, v in sd.items()}, src)
+        out[family] = {"src": src, "out": os.path.join(CHECKPOINT_DIR, family + ".npz"),
+                       "draw_write_s": time.perf_counter() - t0}
+        del sd
+    for family, f in out.items():  # the three conversions at once, a process each, its output to a file
+        with open(f["out"] + ".log", "w") as log:
+            procs[family] = (time.perf_counter(), subprocess.Popen(
+                [sys.executable, "-m", "s2s_tpu_torch.tools.convert_checkpoint", "--family", family,
+                 "--src", f["src"], "--out", f["out"]], stdout=log, stderr=subprocess.STDOUT, text=True))
+    try:
+        while any(proc.poll() is None for _, proc in procs.values()):
+            check(time.perf_counter() - min(t0 for t0, _ in procs.values()) < CONVERT_TIMEOUT_S,
+                  f"the conversions ended within {CONVERT_TIMEOUT_S} s")
+            for family, (t0, proc) in procs.items():
+                if "convert_s" not in out[family] and proc.poll() is not None:
+                    out[family]["convert_s"] = time.perf_counter() - t0
+            time.sleep(0.05)
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for family, (t0, proc) in procs.items():
+        out[family].setdefault("convert_s", time.perf_counter() - t0)
+        with open(out[family]["out"] + ".log") as log:
+            printed = log.read()
+        check(proc.returncode == 0, f"convert_checkpoint --family {family}: {printed[-2000:]}")
+        m = re.search(r"wrote .*: (\d+) arrays, ([\d.]+)M params, peak RSS ([\d.]+) MiB \(([\d.]+) MiB before",
+                      printed)
+        check(m is not None, f"convert_checkpoint --family {family} printed its counts: {printed[-500:]}")
+        out[family].update(src_bytes=os.path.getsize(out[family]["src"]), out_bytes=os.path.getsize(out[family]["out"]),
+                           arrays=int(m.group(1)), params_m=float(m.group(2)), peak_rss_mib=float(m.group(3)),
+                           start_rss_mib=float(m.group(4)))
+    return out
+
+
+def check_served_weights(files: dict[str, dict], llm_params, whisper_params) -> dict:
+    """The spot checks of the served weights against their sources: the
+    LM's embedding bit for bit; its projections int8 (``QuantWeight``), layer
+    0's ``wv`` in the converted file equal to ``v_proj`` transposed and the
+    served ``wv`` within half a quantization step of it (every layer's ``wq``
+    too, whose rows the converter permutes); Whisper's ``conv1_w`` in the
+    file the source conv transposed (2, 1, 0), served (as Conv1d) equal to
+    the source.  Returns the largest dequantization error in steps."""
+    from s2s_tpu_torch.ops.quant import QuantWeight
+    from s2s_tpu_torch.tools import convert_checkpoint as cc
+
+    lm_src = cc.SafetensorsFile(files["smollm2-1.7b"]["src"])
+    lm_npz = np.load(files["smollm2-1.7b"]["out"])
+    embed = lm_src["model.embed_tokens.weight"]
+    check(torch.equal(llm_params["embed"].cpu(), embed), "the served embed is the source's, bit for bit")
+    layers = llm_params["layers"]
+    quant = {k: type(v).__name__ for k, v in layers.items() if "norm" not in k}
+    check(all(isinstance(layers[k], QuantWeight) for k in quant), f"the served LM's projections are int8: {quant}")
+    v_src = lm_src["model.layers.0.self_attn.v_proj.weight"]
+    wv0 = torch.from_numpy(lm_npz["layers/wv"][0].view(np.int16)).view(torch.bfloat16)
+    check(torch.equal(wv0, v_src.T), "layer 0's wv in the converted file is v_proj transposed, bit for bit")
+    steps = {}
+    for name in ("wq", "wv", "w_down"):
+        qw = layers[name]
+        src = torch.from_numpy(lm_npz[f"layers/{name}"].view(np.int16)).view(torch.bfloat16).to(qw.q.device)
+        scale = qw.scale.float()[:, None, :]
+        steps[name] = float(((qw.q.float() * scale - src.float()).abs() / scale).max())
+        del src, scale
+    w_src = cc.SafetensorsFile(files["distil-large-v3"]["src"])["model.encoder.conv1.weight"]
+    w_npz = np.load(files["distil-large-v3"]["out"])["conv1_w"]
+    check(np.array_equal(w_npz.view(np.int16), w_src.to(torch.bfloat16).view(torch.int16).numpy().transpose(2, 1, 0)),
+          "Whisper's conv1_w in the converted file is the source conv transposed (2, 1, 0), cast to bf16")
+    check(torch.equal(whisper_params["conv1_w"].cpu(), w_src.to(torch.bfloat16)),
+          "the served conv1 weight is the source's, as Conv1d, cast to bf16")
+    return steps
+
+
 class _Lines(logging.Handler):
     """Keeps the log records it is handed."""
 
@@ -1809,16 +2218,55 @@ class _Lines(logging.Handler):
 
 def whisper_serve_phase(dev: torch.device, card: list[str]) -> dict[str, int]:
     """The single-session serve with Whisper distil-large-v3 and Smart Turn
-    (``WHISPER_FLAGS``): build (the STT handler warms Whisper up), then every
-    count set to 0, one text turn and the voice turns.  Smart Turn's predictions and
-    the Whisper and Smart Turn encodes are counted by wrapping
-    ``SmartTurnAnalyzer.predict`` and ``whisper.encode``; the VAD handler
-    would log a failed prediction and carry on, so failures are counted and
-    its log watched.  Returns each kernel's launches over the two turns."""
-    from s2s_tpu_torch import cli
-    from s2s_tpu_torch.models import whisper
+    (``WHISPER_FLAGS``) from checkpoints the conversion tool wrote
+    (``write_serve_checkpoints``: SmolLM2-1.7B, distil-large-v3, Smart Turn),
+    so the LM is int8: build (the STT handler warms Whisper up; each
+    checkpoint load timed), then every count set to 0, one text turn and the
+    voice turns.  Smart Turn's predictions and the Whisper and Smart Turn
+    encodes are counted by wrapping ``SmartTurnAnalyzer.predict`` and
+    ``whisper.encode``; the VAD handler would log a failed prediction and
+    carry on, so failures are counted and its log watched.  Then the served
+    weights' spot checks (``check_served_weights``) and a ``checkpoint``
+    line.  Returns each kernel's launches over the two turns, the int8 ones
+    on the LM's weights also as ``int8_matmul_lm``."""
+    import shutil
+
+    from s2s_tpu_torch import cli, registry
+    from s2s_tpu_torch.models import common, whisper
+    from s2s_tpu_torch.ops import _build
+    from s2s_tpu_torch.ops import int8_matmul as mm
+    from s2s_tpu_torch.ops.quant import QuantWeight
     from s2s_tpu_torch.registry import GLOBAL_MODEL_CACHE
     from s2s_tpu_torch.vad import smart_turn
+
+    files = write_serve_checkpoints(dev)
+    flags = [*WHISPER_FLAGS, "--llm_checkpoint", files["smollm2-1.7b"]["out"],
+             "--stt_checkpoint", files["distil-large-v3"]["out"],
+             "--vad_smart_turn_checkpoint", files["smart-turn"]["out"]]
+    real_load, load_s = registry._load_checkpoint, {}
+    # the int8 launches on the LM's own weights (the talker and code predictor are int8 too): a linear on
+    # one of them marks its thread while it runs, and a launch counted in a marked thread is the LM's
+    real_linear, real_count, lm_q, lm_launches, marked = common.quantized_linear, _build.count_launch, [], [0], \
+        threading.local()
+
+    def lm_linear(x, qw, b=None):
+        marked.lm = any(lo <= qw.q.data_ptr() < hi for lo, hi in lm_q)
+        try:
+            return real_linear(x, qw, b)
+        finally:
+            marked.lm = False
+
+    def lm_count(wrapper, rows=None):
+        real_count(wrapper, rows)
+        if wrapper is mm.int8_matmul and getattr(marked, "lm", False):
+            lm_launches[0] += 1
+
+    def timed_load(path):
+        t0 = time.perf_counter()
+        tree = real_load(path)
+        if path:
+            load_s[os.path.basename(path)] = time.perf_counter() - t0
+        return tree
 
     counters = _launch_counters()
     encodes = {"whisper": 0, "smart_turn": 0}
@@ -1846,12 +2294,20 @@ def whisper_serve_phase(dev: torch.device, card: list[str]) -> dict[str, int]:
         lg.setLevel(logging.INFO)
     whisper.encode = counted_encode
     smart_turn.SmartTurnAnalyzer.predict = counted_predict
+    registry._load_checkpoint = timed_load
     stop = threading.Event()
     try:
         t0 = time.perf_counter()
-        manager, server, _ = cli.build_from_argv(["--device", "cuda", *WHISPER_FLAGS], stop)
+        manager, server, _ = cli.build_from_argv(["--device", "cuda", *flags], stop)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
+        registry._load_checkpoint = real_load
+        served = {type(h).__name__: h for h in manager.handlers}
+        llm_params = served["LocalTorchLLMHandler"].params
+        whisper_params = served["WhisperSTTHandler"]._whisper_params
+        lm_q[:] = [(leaf.q.data_ptr(), leaf.q.data_ptr() + leaf.q.numel()) for leaf in llm_params["layers"].values()
+                   if isinstance(leaf, QuantWeight)]
+        common.quantized_linear, _build.count_launch = lm_linear, lm_count
         manager.start()
         try:
             check(server.started.wait(60), "server started")
@@ -1859,6 +2315,7 @@ def whisper_serve_phase(dev: torch.device, card: list[str]) -> dict[str, int]:
             torch.cuda.synchronize()
             for fn in counters.values():  # count the measured turns only (not the build's warm-up)
                 fn.launches = 0
+            lm_launches[0] = 0
             encodes.update(whisper=0, smart_turn=0)
             predictions.clear()
             lines.records.clear()
@@ -1866,6 +2323,7 @@ def whisper_serve_phase(dev: torch.device, card: list[str]) -> dict[str, int]:
             audio, attempts = _voice_turns(url, "whisper serve", need_words=True)
             torch.cuda.synchronize()
             launches = {name: fn.launches for name, fn in counters.items()}
+            launches["int8_matmul_lm"] = lm_launches[0]
             seen = dict(encodes)
         finally:
             stop.set()
@@ -1874,9 +2332,20 @@ def whisper_serve_phase(dev: torch.device, card: list[str]) -> dict[str, int]:
     finally:
         whisper.encode = real_encode
         smart_turn.SmartTurnAnalyzer.predict = real_predict
+        registry._load_checkpoint = real_load
+        common.quantized_linear, _build.count_launch = real_linear, real_count
         for lg, level in zip(loggers, levels):
             lg.removeHandler(lines)
             lg.setLevel(level)
+    try:
+        steps = check_served_weights(files, llm_params, whisper_params)
+    finally:
+        del llm_params, whisper_params
+        shutil.rmtree(CHECKPOINT_DIR, ignore_errors=True)
+    check(launches["int8_matmul_lm"] > 0, f"the int8 kernel carried the checkpoint's LM in the whisper serve: {launches}")
+    phase("checkpoint", card=card, files={f: {k: v for k, v in d.items() if k not in ("src", "out")}
+                                          for f, d in files.items()},
+          load_s=load_s, dequant_max_steps=steps)
 
     text_pcm, text_done = _reply(text, "whisper serve text turn")
     check(audio is not None, f"whisper serve: a voice turn answered with audio: {attempts}")
@@ -1892,7 +2361,7 @@ def whisper_serve_phase(dev: torch.device, card: list[str]) -> dict[str, int]:
     check(launches["flash_attention"] == want_flash and launches["log_mel"] == sum(seen.values()),
           f"launches {launches} against encodes {seen}: every encoder layer through the flash kernel "
           f"({want_flash}), every encode's log-mel through its kernel")
-    phase("whisper_serve", card=card, flags=WHISPER_FLAGS[WHISPER_FLAGS.index("--stt"):], build_s=build_s,
+    phase("whisper_serve", card=card, flags=flags[flags.index("--stt"):], build_s=build_s,
           ttfa_s=_first_audio_s(text), text_turn_s=text_done, audio_seconds=text_pcm.size / 24_000,
           voice_attempts=attempts, voice_turn=voice, whisper_final_infer_s=finals,
           smart_turn_predictions=len(predictions),
@@ -2754,6 +3223,24 @@ def _served_tts_class(tts: str):
             "chatTTS": chattts.ChatTTSModel}[tts]
 
 
+def served_tts_model(tts: str, dev: torch.device):
+    """Pocket's or ChatTTS's served model at ``POCKET_SERVE_LAYERS`` or
+    ``CHATTTS_SERVE_LAYERS`` (full width, random weights from seed 0 as the
+    registry draws them; Pocket's through ``audible_pocket``), for the model
+    cache under the factory's key."""
+    from s2s_tpu_torch.models import chattts, pocket_tts
+
+    if tts == "pocket":
+        cfg = pocket_tts.PocketTTSConfig()
+        backbone, dep = POCKET_SERVE_LAYERS
+        cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(cfg.backbone, n_layers=backbone),
+                                  dep=dataclasses.replace(cfg.dep, n_layers=dep))
+        return ("pocket-tts", None, None, str(dev)), lambda: audible_pocket(pocket_tts.PocketTTS(cfg=cfg, device=dev))
+    cfg = chattts.ChatTTSConfig()
+    cfg = dataclasses.replace(cfg, gpt=dataclasses.replace(cfg.gpt, n_layers=CHATTTS_SERVE_LAYERS))
+    return ("chattts", None, str(dev)), lambda: chattts.ChatTTSModel(cfg=cfg, device=dev)
+
+
 def audible_pocket(model):
     """*model* with its Mimi output conv scaled by ``POCKET_MIMI_OUT_SCALE``
     (random full-width Mimi output sits under the handler's silence
@@ -2765,9 +3252,9 @@ def audible_pocket(model):
 def tts_serve_phase(dev: torch.device, card: list[str], tts: str) -> dict[str, int]:
     """The 4-session batched cascade with ``--tts kokoro``, ``facebookMMS``,
     ``pocket`` or ``chatTTS`` (``tts_flags(BATCHED_FLAGS, tts)``; full
-    width, random weights from seed 0, torch's defaults; Pocket's model is
-    built as the registry builds it and placed in the model cache under the
-    factory's key with ``audible_pocket``): build (the LM and Parakeet
+    width, random weights from seed 0, torch's defaults; Pocket's and
+    ChatTTS's models at the depths of ``served_tts_model``, placed in the
+    model cache under the factories' keys, Pocket's with ``audible_pocket``): build (the LM and Parakeet
     engines warmed), every count set to 0, four concurrent text turns (one a
     session), then voice turns in one session (``VOICE_TONES_HZ`` until one
     is answered); every reply must be non-silent PCM with ``response.done``,
@@ -2798,9 +3285,9 @@ def tts_serve_phase(dev: torch.device, card: list[str], tts: str) -> dict[str, i
     stop = threading.Event()
     try:
         model_s = None
-        if tts == "pocket":
+        if tts in ("pocket", "chatTTS"):
             t0 = time.perf_counter()
-            GLOBAL_MODEL_CACHE.get(("pocket-tts", None, None, str(dev)), lambda: audible_pocket(cls(device=dev)))
+            GLOBAL_MODEL_CACHE.get(*served_tts_model(tts, dev))
             torch.cuda.synchronize()
             model_s = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -2852,7 +3339,12 @@ def tts_serve_phase(dev: torch.device, card: list[str], tts: str) -> dict[str, i
         check(launches[kernel] > 0, f"{kernel} launched in the {tts} serve's turns: {launches}")
     check_parakeet_frontend(launches["parakeet_log_mel"], stt["batches"], f"{tts} serve")
     wall, seconds = sum(w for w, _ in served), sum(a for _, a in served)
-    extra = {"model_build_s": model_s, "mimi_out_scale": POCKET_MIMI_OUT_SCALE} if tts == "pocket" else {}
+    extra = {}
+    if tts in ("pocket", "chatTTS"):
+        extra = {"model_build_s": model_s,
+                 "lm_layers": POCKET_SERVE_LAYERS if tts == "pocket" else CHATTTS_SERVE_LAYERS}
+    if tts == "pocket":
+        extra["mimi_out_scale"] = POCKET_MIMI_OUT_SCALE
     phase(name, card=card, flags=flags[flags.index("--tts"):][:2],
           sessions=SESSIONS, build_s=build_s, warmup_s=warm["s"], round_s=round_s, text_turns=sessions,
           voice_attempts=attempts, voice_turn=voice, transcription_batches=stt["batches"],
@@ -3093,6 +3585,7 @@ def paraformer_vlm_serve_phase(dev: torch.device, card: list[str]) -> dict[str, 
     from s2s_tpu_torch.pipeline.messages import VADAudio
     from s2s_tpu_torch.registry import GLOBAL_MODEL_CACHE
     from s2s_tpu_torch.stt.paraformer_handler import ParaformerSTTHandler
+    from s2s_tpu_torch.tools import convert_checkpoint
     from s2s_tpu_torch.vad.handler import VADHandler
 
     counters = _launch_counters()
@@ -3140,8 +3633,8 @@ def paraformer_vlm_serve_phase(dev: torch.device, card: list[str]) -> dict[str, 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_deepfilter_")
     try:
         checkpoint = f"{tmp}/deepfilter.npz"
-        np.savez(checkpoint, **flat_tree(deepfilter.init_params(deepfilter.DeepFilterConfig(),
-                                                                torch.Generator().manual_seed(0))))
+        np.savez(checkpoint, **convert_checkpoint.flatten(deepfilter.init_params(deepfilter.DeepFilterConfig(),
+                                                                                 torch.Generator().manual_seed(0))))
         flags = tts_flags(PARAFORMER_VLM_FLAGS, "facebookMMS") + ["--vad_enhancer_checkpoint", checkpoint]
         t0 = time.perf_counter()
         manager, server, _ = cli.build_from_argv(["--device", "cuda", *flags], stop)
@@ -3448,6 +3941,7 @@ def main() -> int:
     run("tiny_paraformer_parity", tiny_paraformer_parity_phase, dev, tf32=False)
     run("tiny_vlm_parity", tiny_vlm_parity_phase, dev, tf32=False)
     run("tiny_deepfilter_parity", tiny_deepfilter_parity_phase, dev, tf32=False)
+    run("convert_parity", convert_parity_phase, dev, tf32=False)
     # under torch's defaults, as the serve runs it; before any other profiler session in this process (a
     # profiler started after the traced round's dropped some or all of a tick's device events on an H100)
     run("silero", silero_phase, dev, smi)
@@ -3490,6 +3984,8 @@ def main() -> int:
         {"name": "int8_matmul", "route": "cuda", "source": "s2s_tpu_torch/csrc/int8_matmul.cu",
          "replaces": "s2s_tpu/ops/int8_matmul.py:39", "launches": launches["int8_matmul"],
          "deployment_serve_launches": deployment["int8_matmul"], **tts_serves["int8_matmul"],
+         "whisper_serve_launches": whisper_launches["int8_matmul"],
+         "whisper_serve_lm_launches": whisper_launches["int8_matmul_lm"],
          **{k: int8[k] for k in keys}},
         {"name": "decode_attention", "route": "cuda", "source": "s2s_tpu_torch/csrc/decode_attention.cu",
          "replaces": "s2s_tpu/ops/decode_attention.py:44", "launches": launches["decode_attention"],

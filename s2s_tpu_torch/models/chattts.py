@@ -41,7 +41,8 @@ import torch.nn.functional as F
 
 from s2s_tpu_torch import weights
 from s2s_tpu_torch.models import decoder_lm
-from s2s_tpu_torch.models.common import Params, f32_weight, layer_norm, linear, rms_norm
+from s2s_tpu_torch.models.common import HostStateDict, Params, f32_weight, layer_norm, linear, rms_norm, tree_to_device
+from s2s_tpu_torch.models.common import weight_norm as _wn
 from s2s_tpu_torch.models.decoder_lm import DecoderLMConfig, normal
 from s2s_tpu_torch.ops.istft import istft
 
@@ -445,3 +446,105 @@ class ChatTTSModel:
         step = chunk_tokens * self.cfg.dvae.frames_per_token * self.cfg.vocos.hop
         for i in range(0, len(audio), step):
             yield audio[i: i + step], SAMPLE_RATE
+
+
+# ---------------------------------------------------------------------------
+# checkpoint conversion: the JAX package's numpy converter, its tree on a device
+# ---------------------------------------------------------------------------
+
+
+def convert_state_dict(sd: dict, cfg: ChatTTSConfig = ChatTTSConfig(), device: torch.device | str = "cpu") -> Params:
+    """ChatTTS layout (``scripts/_chattts_torch_twin.py`` documents it:
+    GPT.pt's ``emb_text``/``emb_code.{k}``/weight-normed ``head_code.{k}``/
+    Llama body under ``gpt(.model).layers.{i}``; Decoder.pt's GFSQ
+    ``project_out`` + ``conv_in`` + ConvNeXt ``decoder_block`` + ``out_conv``
+    + ``coef``; Vocos.pt's backbone+head) -> the JAX package's tree on *device*."""
+    sd = HostStateDict(sd)
+
+    def t(name):
+        return np.asarray(sd[name], np.float32)
+
+    def conv_t(w):
+        return np.asarray(w, np.float32).transpose(2, 1, 0)
+
+    def conv(prefix):
+        return {"w": conv_t(t(f"{prefix}.weight")), "b": t(f"{prefix}.bias")}
+
+    gp = "gpt.model.layers" if any(k.startswith("gpt.model.layers") for k in sd) else "gpt.layers"
+    layers = []
+    for i in range(cfg.gpt.n_layers):
+        lp = f"{gp}.{i}"
+        layers.append({
+            "attn_norm": t(f"{lp}.input_layernorm.weight"),
+            "wq": t(f"{lp}.self_attn.q_proj.weight").T,
+            "wk": t(f"{lp}.self_attn.k_proj.weight").T,
+            "wv": t(f"{lp}.self_attn.v_proj.weight").T,
+            "wo": t(f"{lp}.self_attn.o_proj.weight").T,
+            "mlp_norm": t(f"{lp}.post_attention_layernorm.weight"),
+            "w_gate": t(f"{lp}.mlp.gate_proj.weight").T,
+            "w_up": t(f"{lp}.mlp.up_proj.weight").T,
+            "w_down": t(f"{lp}.mlp.down_proj.weight").T,
+        })
+    stacked = {k: np.stack([l[k] for l in layers]) for k in layers[0]}
+    norm_key = "gpt.model.norm.weight" if "gpt.model.norm.weight" in sd else "gpt.norm.weight"
+
+    nvq = cfg.dvae.num_vq
+    if "spk_stat" in sd:  # shipped as a concatenated (2*d,) mean/std vector
+        stat = np.asarray(sd["spk_stat"], np.float32).reshape(-1)
+        d = stat.shape[0] // 2
+        spk_mean, spk_std = stat[:d], stat[d:]
+    else:
+        spk_mean = t("spk_mean") if "spk_mean" in sd else np.zeros(cfg.gpt.d_model, np.float32)
+        spk_std = t("spk_std") if "spk_std" in sd else np.ones(cfg.gpt.d_model, np.float32)
+
+    n_blocks = len({k.split(".")[1] for k in sd if k.startswith("decoder_block.")})
+    n_vocos = len({k.split(".")[1] for k in sd if k.startswith("convnext.")})
+    return tree_to_device({
+        "gpt": {"layers": stacked, "final_norm": t(norm_key)},
+        "emb_text": t("emb_text.weight"),
+        "emb_code": np.stack([t(f"emb_code.{k}.weight") for k in range(nvq)]),
+        "head_code": np.stack([_wn(sd, f"head_code.{k}").T for k in range(nvq)]),
+        "spk_mean": spk_mean,
+        "spk_std": spk_std,
+        "dvae": {
+            "project_out": t("project_out"),
+            "conv_in": [conv("conv_in.0"), conv("conv_in.2")],
+            "blocks": [
+                {
+                    "dw": {"w": conv_t(t(f"decoder_block.{i}.dwconv.weight")),
+                           "b": t(f"decoder_block.{i}.dwconv.bias")},
+                    "ln_w": t(f"decoder_block.{i}.norm.weight"),
+                    "ln_b": t(f"decoder_block.{i}.norm.bias"),
+                    "pw1": {"w": t(f"decoder_block.{i}.pwconv1.weight").T,
+                            "b": t(f"decoder_block.{i}.pwconv1.bias")},
+                    "pw2": {"w": t(f"decoder_block.{i}.pwconv2.weight").T,
+                            "b": t(f"decoder_block.{i}.pwconv2.bias")},
+                    "gamma": t(f"decoder_block.{i}.gamma"),
+                }
+                for i in range(n_blocks)
+            ],
+            "out_conv": conv("out_conv"),
+            "coef": np.asarray(sd["coef"], np.float32).reshape(-1),
+        },
+        "vocos": {
+            "embed": conv("embed"),
+            "norm_w": t("norm.weight"), "norm_b": t("norm.bias"),
+            "layers": [
+                {
+                    "dw": {"w": conv_t(t(f"convnext.{i}.dwconv.weight")),
+                           "b": t(f"convnext.{i}.dwconv.bias")},
+                    "ln_w": t(f"convnext.{i}.norm.weight"),
+                    "ln_b": t(f"convnext.{i}.norm.bias"),
+                    "pw1": {"w": t(f"convnext.{i}.pwconv1.weight").T,
+                            "b": t(f"convnext.{i}.pwconv1.bias")},
+                    "pw2": {"w": t(f"convnext.{i}.pwconv2.weight").T,
+                            "b": t(f"convnext.{i}.pwconv2.bias")},
+                    "gamma": t(f"convnext.{i}.gamma"),
+                }
+                for i in range(n_vocos)
+            ],
+            "final_ln_w": t("final_layer_norm.weight"),
+            "final_ln_b": t("final_layer_norm.bias"),
+            "head": {"w": t("head.weight").T, "b": t("head.bias")},
+        },
+    }, device)

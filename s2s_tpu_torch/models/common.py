@@ -13,8 +13,10 @@ Plain functions on tensors, with the JAX package's layouts and numerics:
 from __future__ import annotations
 
 import functools
+from collections.abc import Mapping
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -228,3 +230,88 @@ def f32_weight(params: Params, name: str) -> torch.Tensor:
     if w is None:
         w = params[key] = params[name].float()
     return w
+
+
+# ── checkpoint conversion ────────────────────────────────────────────
+#
+# The converters (``convert_*`` in each model module) take a state dict of
+# numpy arrays or tensors, do their arithmetic with the JAX package's numpy
+# calls on the host, and cast each result to its dtype on the device they
+# are given: the trees they return are the JAX converters', leaf for leaf and
+# bit for bit.
+
+
+def host_array(value: Any) -> np.ndarray:
+    """A state-dict entry (a numpy array or a tensor) as a numpy array on the
+    host.  bf16, torch's or ``ml_dtypes``' in numpy, widens to f32 exactly:
+    numpy has no bf16 of its own, and a cast back to bf16 on the device then
+    gives the source's bits."""
+    if isinstance(value, torch.Tensor):
+        value = value.detach().cpu()
+        return (value.float() if value.dtype == torch.bfloat16 else value).numpy()
+    arr = np.asarray(value)
+    return arr.astype(np.float32) if arr.dtype.name == "bfloat16" else arr
+
+
+class HostStateDict(Mapping):
+    """A read-only view of a state dict whose entries read as
+    :func:`host_array`, one at a time, so a converter's numpy code runs on
+    tensors and on bf16 sources unchanged."""
+
+    def __init__(self, sd: Mapping) -> None:
+        self._sd = sd
+
+    def __getitem__(self, key: str) -> np.ndarray:
+        return host_array(self._sd[key])
+
+    def __contains__(self, key: object) -> bool:
+        return key in self._sd
+
+    def __iter__(self):
+        return iter(self._sd)
+
+    def __len__(self) -> int:
+        return len(self._sd)
+
+
+def weight_norm(sd, prefix: str) -> np.ndarray:
+    """A weight-normed convolution's weight in f32: ``<prefix>.weight`` as
+    it is, or fused from ``weight_g``/``weight_v`` (or the parametrizations
+    form) in f64, as the JAX package's Kokoro, ChatTTS and Mimi converters
+    fuse it."""
+    if f"{prefix}.weight" in sd:
+        return np.asarray(sd[f"{prefix}.weight"], np.float32)
+    if f"{prefix}.weight_g" in sd:
+        g, v = sd[f"{prefix}.weight_g"], sd[f"{prefix}.weight_v"]
+    else:
+        g = sd[f"{prefix}.parametrizations.weight.original0"]
+        v = sd[f"{prefix}.parametrizations.weight.original1"]
+    g, v = np.asarray(g, np.float64), np.asarray(v, np.float64)
+    norm = np.linalg.norm(v.reshape(v.shape[0], -1), axis=1).reshape((-1,) + (1,) * (v.ndim - 1))
+    return (g * v / norm).astype(np.float32)
+
+
+def device_tensor(arr: np.ndarray, dtype: torch.dtype | None, device: torch.device | str) -> torch.Tensor:
+    """*arr* on *device*, cast there to *dtype* (None keeps the array's), as
+    ``jnp.asarray(arr, dtype)`` casts on JAX's default device."""
+    t = torch.from_numpy(np.require(arr, requirements=("C", "W"))).to(device)
+    return t if dtype is None else t.to(dtype)
+
+
+def tree_to_device(tree: Any, device: torch.device | str) -> Any:
+    """Every numpy leaf of a nested dict/list tree -> a tensor of its dtype on
+    *device*."""
+    if isinstance(tree, dict):
+        return {k: tree_to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_to_device(v, device) for v in tree)
+    return device_tensor(np.asarray(tree), None, device)
+
+
+def stack_layers(layers: list[Params]) -> Params:
+    """Per-layer trees -> one tree whose leaves stack on a leading layer
+    axis (the JAX package's ``stack_layers``)."""
+    first = layers[0]
+    if isinstance(first, dict):
+        return {k: stack_layers([layer[k] for layer in layers]) for k in first}
+    return torch.stack(layers)

@@ -38,10 +38,13 @@ from s2s_tpu_torch.models.common import (
     apply_rope,
     attention,
     causal_mask,
+    device_tensor,
+    host_array,
     length_mask,
     linear,
     rms_norm,
     rope_frequencies,
+    stack_layers,
     swiglu,
     unstack_layers,
 )
@@ -443,25 +446,22 @@ def _rope_perm(hd: int) -> np.ndarray:
     return perm
 
 
-def convert_hf_state_dict(state_dict: dict[str, Any], cfg: DecoderLMConfig) -> Params:
+def convert_hf_state_dict(state_dict: dict[str, Any], cfg: DecoderLMConfig,
+                          device: torch.device | str = "cpu") -> Params:
     """Map a HF Llama/SmolLM2-style ``state_dict`` (numpy arrays or tensors)
-    onto the parameter tree, on the CPU.  HF stores (out, in), so
-    projections transpose; q/k rows are permuted from HF's half-split rope
-    to the interleaved pairs :func:`apply_rope` rotates (and the Qwen3 q/k
-    norm weights with them: RMS is permutation-equivariant); layers stack.
-    The same trees, bit for bit, as the JAX package's converter."""
+    onto the parameter tree, each tensor cast to ``cfg.dtype`` on *device*.
+    HF stores (out, in), so projections transpose; q/k rows are permuted
+    from HF's half-split rope to the interleaved pairs :func:`apply_rope`
+    rotates (and the Qwen3 q/k norm weights with them: RMS is
+    permutation-equivariant); layers stack.  The same trees, bit for bit, as
+    the JAX package's converter."""
     perm = _rope_perm(cfg.head_dim)
 
     def arr(name) -> np.ndarray:
-        w = state_dict[name]
-        if isinstance(w, torch.Tensor):  # bf16 widens to f32 exactly; numpy has no bf16 of its own
-            w = w.detach().cpu()
-            return (w.float() if w.dtype == torch.bfloat16 else w).numpy()
-        w = np.asarray(w)
-        return w.astype(np.float32) if w.dtype.name == "bfloat16" else w
+        return host_array(state_dict[name])
 
     def tensor(w: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(w)).to(cfg.dtype)
+        return device_tensor(w, cfg.dtype, device)
 
     def t(name):
         return tensor(arr(name).T)
@@ -491,7 +491,7 @@ def convert_hf_state_dict(state_dict: dict[str, Any], cfg: DecoderLMConfig) -> P
         layers.append(layer)
     params: Params = {
         "embed": tensor(arr("model.embed_tokens.weight")),
-        "layers": {name: torch.stack([layer[name] for layer in layers]) for name in layers[0]},
+        "layers": stack_layers(layers),
         "final_norm": tensor(arr("model.norm.weight")),
     }
     if not cfg.tie_embeddings and "lm_head.weight" in state_dict:

@@ -42,7 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from s2s_tpu_torch import weights
-from s2s_tpu_torch.models.common import Params
+from s2s_tpu_torch.models.common import HostStateDict, Params, tree_to_device
 from s2s_tpu_torch.models.decoder_lm import normal
 from s2s_tpu_torch.ops.istft import istft
 
@@ -292,3 +292,39 @@ class DeepFilterEnhancer:
         if len(out) < n:
             out = np.pad(out, (0, n - len(out)))
         return out[:n]
+
+
+# ---------------------------------------------------------------------------
+# checkpoint conversion: the JAX package's numpy converter, its tree on a device
+# ---------------------------------------------------------------------------
+
+
+def convert_state_dict(sd: dict, cfg: DeepFilterConfig = DeepFilterConfig(), device: torch.device | str = "cpu") -> Params:
+    """Twin layout (``scripts/_deepfilter_torch_twin.py``): ``erb_conv{0,1}``
+    / ``df_conv{0,1}`` Conv2d, ``emb_in`` Linear, ``gru`` GRUCell,
+    ``erb_dec`` / ``df_dec`` Linear heads."""
+    sd = HostStateDict(sd)
+
+    def t(name):
+        return np.asarray(sd[name], np.float32)
+
+    def conv(prefix):
+        # torch Conv2d (O, I, kT, kF) -> (kT, kF, I, O)
+        return {"w": t(f"{prefix}.weight").transpose(2, 3, 1, 0),
+                "b": t(f"{prefix}.bias")}
+
+    def lin(prefix):
+        return {"w": t(f"{prefix}.weight").T, "b": t(f"{prefix}.bias")}
+
+    return tree_to_device({
+        "erb_fb": erb_filterbank(cfg),
+        "erb_conv0": conv("erb_conv0"), "erb_conv1": conv("erb_conv1"),
+        "df_conv0": conv("df_conv0"), "df_conv1": conv("df_conv1"),
+        "emb_in": lin("emb_in"),
+        "gru": {
+            "wi": t("gru.weight_ih").T, "wh": t("gru.weight_hh").T,
+            "bi": t("gru.bias_ih"), "bh": t("gru.bias_hh"),
+        },
+        "erb_dec": lin("erb_dec"),
+        "df_dec": lin("df_dec"),
+    }, device)

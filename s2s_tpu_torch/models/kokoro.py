@@ -43,7 +43,8 @@ import torch
 import torch.nn.functional as F
 
 from s2s_tpu_torch import weights
-from s2s_tpu_torch.models.common import layer_norm
+from s2s_tpu_torch.models.common import HostStateDict, layer_norm, tree_to_device
+from s2s_tpu_torch.models.common import weight_norm as _wn
 from s2s_tpu_torch.models.common import xla_cumsum as _cumsum
 from s2s_tpu_torch.models.decoder_lm import normal
 
@@ -660,3 +661,178 @@ class KokoroTTS:
         step = int(chunk_s * self.cfg.sample_rate)
         for i in range(0, max(len(audio), 1), step):
             yield audio[i: i + step], self.cfg.sample_rate
+
+
+# ---------------------------------------------------------------------------
+# checkpoint conversion: the JAX package's numpy converter, its tree on a device
+# ---------------------------------------------------------------------------
+
+
+def convert_state_dict(sd: dict, cfg: KokoroConfig = KokoroConfig(), device: torch.device | str = "cpu") -> Params:
+    """Flattened kokoro checkpoint ('bert.*', 'bert_encoder.*', 'predictor.*',
+    'text_encoder.*', 'decoder.*'; 'module.' prefixes stripped by the
+    loader) -> the JAX package's tree on *device*.  Layout documented in
+    scripts/_kokoro_torch_twin.py."""
+    sd = HostStateDict(sd)
+
+    def t(name):
+        return np.asarray(sd[name], np.float32)
+
+    def lin_t(name):
+        return t(name).T
+
+    def conv_t(w):
+        return np.asarray(w, np.float32).transpose(2, 1, 0)
+
+    def convT_t(w):
+        w = np.asarray(w, np.float32)  # (I, O, K) non-grouped
+        return w[:, :, ::-1].transpose(2, 0, 1).copy()  # flip -> (K, I, O)
+
+    def convT_group_t(w):
+        w = np.asarray(w, np.float32)  # (I, O/g=1, K) depthwise
+        return w[:, :, ::-1].transpose(2, 1, 0).copy()  # flip -> (K, 1, I)
+
+    # ALBERT — note HF prefix "encoder.albert_layer_groups.0.albert_layers.0"
+    al = "bert.encoder.albert_layer_groups.0.albert_layers.0"
+    albert = {
+        "word_emb": t("bert.embeddings.word_embeddings.weight"),
+        "pos_emb": t("bert.embeddings.position_embeddings.weight"),
+        "type_emb": t("bert.embeddings.token_type_embeddings.weight"),
+        "emb_ln_w": t("bert.embeddings.LayerNorm.weight"),
+        "emb_ln_b": t("bert.embeddings.LayerNorm.bias"),
+        "map_w": lin_t("bert.encoder.embedding_hidden_mapping_in.weight"),
+        "map_b": t("bert.encoder.embedding_hidden_mapping_in.bias"),
+        "layer": {
+            "q_w": lin_t(f"{al}.attention.query.weight"), "q_b": t(f"{al}.attention.query.bias"),
+            "k_w": lin_t(f"{al}.attention.key.weight"), "k_b": t(f"{al}.attention.key.bias"),
+            "v_w": lin_t(f"{al}.attention.value.weight"), "v_b": t(f"{al}.attention.value.bias"),
+            "o_w": lin_t(f"{al}.attention.dense.weight"), "o_b": t(f"{al}.attention.dense.bias"),
+            "attn_ln_w": t(f"{al}.attention.LayerNorm.weight"),
+            "attn_ln_b": t(f"{al}.attention.LayerNorm.bias"),
+            "ffn_w": lin_t(f"{al}.ffn.weight"), "ffn_b": t(f"{al}.ffn.bias"),
+            "ffn_out_w": lin_t(f"{al}.ffn_output.weight"), "ffn_out_b": t(f"{al}.ffn_output.bias"),
+            "full_ln_w": t(f"{al}.full_layer_layer_norm.weight"),
+            "full_ln_b": t(f"{al}.full_layer_layer_norm.bias"),
+        },
+    }
+
+    def lstm_t(prefix):
+        return {
+            "w_ih_f": lin_t(f"{prefix}.weight_ih_l0"),
+            "w_hh_f": lin_t(f"{prefix}.weight_hh_l0"),
+            "b_f": t(f"{prefix}.bias_ih_l0") + t(f"{prefix}.bias_hh_l0"),
+            "w_ih_b": lin_t(f"{prefix}.weight_ih_l0_reverse"),
+            "w_hh_b": lin_t(f"{prefix}.weight_hh_l0_reverse"),
+            "b_b": t(f"{prefix}.bias_ih_l0_reverse") + t(f"{prefix}.bias_hh_l0_reverse"),
+        }
+
+    def adain_t(prefix):
+        return {"fc_w": lin_t(f"{prefix}.fc.weight"), "fc_b": t(f"{prefix}.fc.bias")}
+
+    def res_blk_t(prefix, upsample=False):
+        p = {
+            "norm1": adain_t(f"{prefix}.norm1"),
+            "norm2": adain_t(f"{prefix}.norm2"),
+            "conv1_w": conv_t(_wn(sd, f"{prefix}.conv1")), "conv1_b": t(f"{prefix}.conv1.bias"),
+            "conv2_w": conv_t(_wn(sd, f"{prefix}.conv2")), "conv2_b": t(f"{prefix}.conv2.bias"),
+        }
+        if f"{prefix}.conv1x1.weight_v" in sd or f"{prefix}.conv1x1.weight" in sd \
+                or f"{prefix}.conv1x1.parametrizations.weight.original0" in sd:
+            p["sc_w"] = _wn(sd, f"{prefix}.conv1x1")[:, :, 0].T
+        if upsample:
+            p["pool_w"] = convT_group_t(_wn(sd, f"{prefix}.pool"))
+            p["pool_b"] = t(f"{prefix}.pool.bias")
+        return p
+
+    def snake_blk_t(prefix, n):
+        p = {"adain1": [], "adain2": [], "alpha1": [], "alpha2": [],
+             "c1_w": [], "c1_b": [], "c2_w": [], "c2_b": []}
+        for j in range(n):
+            p["adain1"].append(adain_t(f"{prefix}.adain1.{j}"))
+            p["adain2"].append(adain_t(f"{prefix}.adain2.{j}"))
+            p["alpha1"].append(t(f"{prefix}.alpha1.{j}")[0, :, 0])
+            p["alpha2"].append(t(f"{prefix}.alpha2.{j}")[0, :, 0])
+            p["c1_w"].append(conv_t(_wn(sd, f"{prefix}.convs1.{j}")))
+            p["c1_b"].append(t(f"{prefix}.convs1.{j}.bias"))
+            p["c2_w"].append(conv_t(_wn(sd, f"{prefix}.convs2.{j}")))
+            p["c2_b"].append(t(f"{prefix}.convs2.{j}.bias"))
+        return p
+
+    de_layers = []
+    for i in range(cfg.n_layer):
+        de_layers.append({
+            "lstm": lstm_t(f"predictor.text_encoder.lstms.{2 * i}"),
+            "ada_ln": adain_t(f"predictor.text_encoder.lstms.{2 * i + 1}"),
+        })
+
+    dur_key = ("predictor.duration_proj.linear_layer.weight"
+               if "predictor.duration_proj.linear_layer.weight" in sd
+               else "predictor.duration_proj.weight")
+    predictor = {
+        "text_encoder": {"layers": de_layers},
+        "lstm": lstm_t("predictor.lstm"),
+        "duration_proj": {"w": np.asarray(sd[dur_key], np.float32).T,
+                          "b": t(dur_key.replace("weight", "bias"))},
+        "shared": lstm_t("predictor.shared"),
+        "F0": [res_blk_t("predictor.F0.0"), res_blk_t("predictor.F0.1", upsample=True),
+               res_blk_t("predictor.F0.2")],
+        "N": [res_blk_t("predictor.N.0"), res_blk_t("predictor.N.1", upsample=True),
+              res_blk_t("predictor.N.2")],
+        "F0_proj": {"w": t("predictor.F0_proj.weight")[:, :, 0].T,
+                    "b": t("predictor.F0_proj.bias")},
+        "N_proj": {"w": t("predictor.N_proj.weight")[:, :, 0].T,
+                   "b": t("predictor.N_proj.bias")},
+    }
+
+    text_encoder = {
+        "embed": t("text_encoder.embedding.weight"),
+        "cnn": [
+            {
+                "conv_w": conv_t(_wn(sd, f"text_encoder.cnn.{i}.0")),
+                "conv_b": t(f"text_encoder.cnn.{i}.0.bias"),
+                "ln_w": t(f"text_encoder.cnn.{i}.1.gamma"),
+                "ln_b": t(f"text_encoder.cnn.{i}.1.beta"),
+            }
+            for i in range(cfg.n_layer)
+        ],
+        "lstm": lstm_t("text_encoder.lstm"),
+    }
+
+    nk = len(cfg.resblock_kernels)
+    gen = {"ups_w": [], "ups_b": [], "res": [], "noise_conv_w": [], "noise_conv_b": [],
+           "noise_res": [],
+           "source": {"lin_w": lin_t("decoder.generator.m_source.l_linear.weight"),
+                      "lin_b": t("decoder.generator.m_source.l_linear.bias")}}
+    for i in range(len(cfg.upsample_rates)):
+        gen["ups_w"].append(convT_t(_wn(sd, f"decoder.generator.ups.{i}")))
+        gen["ups_b"].append(t(f"decoder.generator.ups.{i}.bias"))
+        for j in range(nk):
+            gen["res"].append(snake_blk_t(f"decoder.generator.resblocks.{i * nk + j}",
+                                          len(cfg.resblock_dilations[j])))
+        gen["noise_conv_w"].append(conv_t(sd[f"decoder.generator.noise_convs.{i}.weight"]))
+        gen["noise_conv_b"].append(t(f"decoder.generator.noise_convs.{i}.bias"))
+        gen["noise_res"].append(snake_blk_t(f"decoder.generator.noise_res.{i}", 3))
+    gen["post_w"] = conv_t(_wn(sd, "decoder.generator.conv_post"))
+    gen["post_b"] = t("decoder.generator.conv_post.bias")
+
+    decoder = {
+        "encode": res_blk_t("decoder.encode"),
+        "decode": [res_blk_t(f"decoder.decode.{i}") for i in range(3)]
+                  + [res_blk_t("decoder.decode.3", upsample=True)],
+        "f0_conv_w": conv_t(_wn(sd, "decoder.F0_conv")),
+        "f0_conv_b": t("decoder.F0_conv.bias"),
+        "n_conv_w": conv_t(_wn(sd, "decoder.N_conv")),
+        "n_conv_b": t("decoder.N_conv.bias"),
+        "asr_res_w": _wn(sd, "decoder.asr_res.0")[:, :, 0].T,
+        "asr_res_b": t("decoder.asr_res.0.bias"),
+        "generator": gen,
+    }
+
+    return tree_to_device({
+        "bert": albert,
+        "bert_encoder": {"w": lin_t("bert_encoder.weight"), "b": t("bert_encoder.bias")},
+        "predictor": predictor,
+        "text_encoder": text_encoder,
+        "decoder": decoder,
+        "voices": np.zeros((1, 2 * cfg.style_dim), np.float32),
+    }, device)

@@ -21,8 +21,9 @@ Layouts: activations (B, T, C); convolution weights are PyTorch's Conv1d
 ``(out, in, k)``, transposed convolutions' ConvTranspose1d ``(in, out, k)``
 and the depthwise upsample's ``(C, 1, k)``.
 :func:`s2s_tpu_torch.weights.mimi_params` carries the JAX package's trees
-(``init_decoder_params``, the converters) across.  The checkpoint
-converters themselves stay in the JAX package (ROADMAP queue 1 item 8).
+(``init_decoder_params``, the converters) across;
+:func:`convert_state_dict` and :func:`convert_hf_state_dict` are the port's
+own converters, giving those trees from a checkpoint.
 
 Streaming re-decodes ``decode_deficit`` frames of left context per chunk,
 as the JAX package does, so a streamed chunk equals the one-shot decode.
@@ -31,6 +32,7 @@ as the JAX package does, so a streamed chunk equals the one-shot decode.
 from __future__ import annotations
 
 import math
+import re
 from dataclasses import dataclass
 from typing import Any
 
@@ -39,7 +41,8 @@ import torch
 import torch.nn.functional as F
 
 from s2s_tpu_torch import weights
-from s2s_tpu_torch.models.common import Params, layer_norm, linear
+from s2s_tpu_torch.models.common import HostStateDict, Params, layer_norm, linear, tree_to_device
+from s2s_tpu_torch.models.common import weight_norm as _wn
 from s2s_tpu_torch.models.decoder_lm import normal
 
 SAMPLE_RATE = 24_000
@@ -91,7 +94,7 @@ class MimiConfig:
 
 
 # ---------------------------------------------------------------------------
-# init (random weights; real checkpoints come through the JAX converter)
+# init (random weights; real checkpoints come through the converters below)
 # ---------------------------------------------------------------------------
 
 
@@ -267,3 +270,201 @@ def streaming_decode(params: Params, cfg: MimiConfig, codes, context_frames: int
         audio = decode(params, cfg, codes[:, lo: start + step])
         out.append(audio[:, (start - lo) * cfg.hop:].cpu().numpy())
     return np.concatenate(out, axis=1)[:, : t * cfg.hop]
+
+
+# ---------------------------------------------------------------------------
+# checkpoint conversion: the JAX package's numpy converter, its tree on a device
+# ---------------------------------------------------------------------------
+
+
+def _codebooks(sd: dict, group: str, n: int, stacked_key: str) -> np.ndarray:
+    """RVQ codebooks under *group*: either a stacked (n, cs, cd) tensor (the
+    twin) or per-layer ``vq.layers.{k}._codebook.{embedding|embed|
+    embedding_sum+cluster_usage}`` (moshi checkpoints)."""
+    if stacked_key in sd:
+        return np.asarray(sd[stacked_key], np.float32)
+    books = []
+    for k in range(n):
+        base = f"{group}.vq.layers.{k}._codebook"
+        if f"{base}.embedding" in sd:
+            books.append(np.asarray(sd[f"{base}.embedding"], np.float32))
+        elif f"{base}.embed" in sd:
+            books.append(np.asarray(sd[f"{base}.embed"], np.float32))
+        else:  # EMA form: embedding = sum / usage
+            s = np.asarray(sd[f"{base}.embedding_sum"], np.float64)
+            u = np.asarray(sd[f"{base}.cluster_usage"], np.float64)
+            books.append((s / np.maximum(u[:, None], 1e-8)).astype(np.float32))
+    return np.stack(books)
+
+
+def convert_state_dict(sd: dict, cfg: MimiConfig = MimiConfig(), device: torch.device | str = "cpu") -> Params:
+    """moshi-style ``MimiModel`` decoder-side layout -> the JAX package's tree on *device*.
+
+    Expected keys (mirrored by ``scripts/_mimi_torch_twin.py``, which is
+    the authoritative documentation): ``quantizer.rvq_first/rvq_rest``
+    (codebooks + 1x1 ``output_proj``), ``decoder_transformer.layers.{i}``
+    (optionally with a ``.transformer`` infix), ``upsample.convtr``,
+    ``decoder.model.{idx}`` (SEANet Sequential).
+    """
+    sd = HostStateDict(sd)
+
+    def conv_t(w):  # torch conv (O, I, K) -> (K, I, O)
+        return np.asarray(w, np.float32).transpose(2, 1, 0)
+
+    def convT_t(w):  # torch convtr (I, O, K) -> flip -> (K, I, O)
+        w = np.asarray(w, np.float32)
+        return w[:, :, ::-1].transpose(2, 0, 1).copy()
+
+    def bias(prefix):
+        key = f"{prefix}.bias"
+        return np.asarray(sd[key], np.float32) if key in sd else None
+
+    p: Params = {}
+    # ── quantizer ────────────────────────────────────────────────────
+    sem = _codebooks(sd, "quantizer.rvq_first", 1, "quantizer.rvq_first.codebooks")
+    p["sem_codebook"] = sem[0]
+    p["sem_out_proj"] = np.asarray(
+        sd["quantizer.rvq_first.output_proj.weight"], np.float32
+    )[:, :, 0].T  # conv1x1 (dim, cd, 1) -> (cd, dim)
+    ac = _codebooks(sd, "quantizer.rvq_rest", cfg.n_q - 1, "quantizer.rvq_rest.codebooks")
+    p["ac_codebooks"] = ac
+    p["ac_out_proj"] = np.asarray(
+        sd["quantizer.rvq_rest.output_proj.weight"], np.float32
+    )[:, :, 0].T
+
+    # ── decoder transformer ──────────────────────────────────────────
+    tp = "decoder_transformer.transformer.layers" \
+        if any(k.startswith("decoder_transformer.transformer.") for k in sd) \
+        else "decoder_transformer.layers"
+    tlayers = []
+    for i in range(cfg.t_layers):
+        lpfx = f"{tp}.{i}"
+        if f"{lpfx}.self_attn.in_proj_weight" in sd:
+            w_in = np.asarray(sd[f"{lpfx}.self_attn.in_proj_weight"], np.float32)
+            wq, wk, wv = np.split(w_in, 3, axis=0)
+        else:  # separate projections
+            wq = np.asarray(sd[f"{lpfx}.self_attn.q_proj.weight"], np.float32)
+            wk = np.asarray(sd[f"{lpfx}.self_attn.k_proj.weight"], np.float32)
+            wv = np.asarray(sd[f"{lpfx}.self_attn.v_proj.weight"], np.float32)
+        tlayers.append({
+            "norm1_w": np.asarray(sd[f"{lpfx}.norm1.weight"], np.float32),
+            "norm1_b": np.asarray(sd[f"{lpfx}.norm1.bias"], np.float32),
+            "wq": wq.T, "wk": wk.T, "wv": wv.T,
+            "wo": np.asarray(sd[f"{lpfx}.self_attn.out_proj.weight"], np.float32).T,
+            "ls1": np.asarray(sd[f"{lpfx}.layer_scale_1.scale"], np.float32),
+            "norm2_w": np.asarray(sd[f"{lpfx}.norm2.weight"], np.float32),
+            "norm2_b": np.asarray(sd[f"{lpfx}.norm2.bias"], np.float32),
+            "w1": np.asarray(sd[f"{lpfx}.linear1.weight"], np.float32).T,
+            "w2": np.asarray(sd[f"{lpfx}.linear2.weight"], np.float32).T,
+            "ls2": np.asarray(sd[f"{lpfx}.layer_scale_2.scale"], np.float32),
+        })
+    p["tlayers"] = tlayers
+
+    # ── learnt upsample (depthwise, no weight norm, no bias) ─────────
+    up = _wn(sd, "upsample.convtr")  # (C, 1, K) grouped
+    p["upsample"] = {"w": up[:, 0, :].T.copy()}  # -> (K, C); _upsample flips
+
+    # ── seanet decoder ───────────────────────────────────────────────
+    def conv_at(idx, dilation=1):
+        w = _wn(sd, f"decoder.model.{idx}.conv")
+        b = bias(f"decoder.model.{idx}.conv")
+        out = {"w": conv_t(w)}
+        out["b"] = b if b is not None else np.zeros(w.shape[0], np.float32)
+        return out
+
+    p["init_conv"] = conv_at(0)
+    idx = 1
+    blocks = []
+    for _r in cfg.ratios:
+        idx += 1  # skip ELU
+        w = _wn(sd, f"decoder.model.{idx}.convtr")
+        b = bias(f"decoder.model.{idx}.convtr")
+        blk: Params = {"up": {"w": convT_t(w)}}
+        if b is not None:
+            blk["up"]["b"] = b
+        idx += 1
+        units = []
+        for _d in cfg.dilations:
+            base = f"decoder.model.{idx}.block"
+            units.append({
+                "c1": {"w": conv_t(_wn(sd, f"{base}.1.conv")),
+                       "b": np.asarray(sd.get(f"{base}.1.conv.bias",
+                                              np.zeros(1)), np.float32)},
+                "c2": {"w": conv_t(_wn(sd, f"{base}.3.conv")),
+                       "b": np.asarray(sd.get(f"{base}.3.conv.bias",
+                                              np.zeros(1)), np.float32)},
+            })
+            idx += 1
+        # fix zero-bias shapes
+        for u in units:
+            for c in ("c1", "c2"):
+                cout = u[c]["w"].shape[2]
+                if u[c]["b"].shape != (cout,):
+                    u[c]["b"] = np.zeros(cout, np.float32)
+        blk["units"] = units
+        blocks.append(blk)
+    p["blocks"] = blocks
+    idx += 1  # final ELU
+    p["final_conv"] = conv_at(idx)
+    return tree_to_device(p, device)
+
+
+def hf_to_moshi_names(sd: dict, cfg: MimiConfig = MimiConfig()) -> dict:
+    """Rename a ``transformers.MimiModel`` state dict (the layout real HF
+    Mimi checkpoints like ``kyutai/mimi`` ship in) to the moshi-style keys
+    :func:`convert_state_dict` consumes.
+
+    Decoder-side only; encoder keys are dropped.  Key families:
+    ``decoder_transformer.layers.{i}.self_attn.{q,k,v,o}_proj`` /
+    ``input_layernorm`` / ``post_attention_layernorm`` / ``mlp.fc{1,2}`` /
+    ``{self_attn,mlp}_layer_scale.scale``;
+    ``quantizer.{semantic,acoustic}_residual_vector_quantizer.layers.{k}.
+    codebook.{embed_sum,cluster_usage}`` + ``output_proj``;
+    ``upsample.conv``; ``decoder.layers.{idx}.(conv|block.N.conv)`` with
+    the transposed-conv positions derived from ``cfg.ratios``.
+    """
+    out: dict = {}
+    # positions of transposed convs in the flat SEANet Sequential
+    trans_idx = set()
+    idx = 1
+    for _r in cfg.ratios:
+        trans_idx.add(idx + 1)  # after the ELU
+        idx += 2 + len(cfg.dilations)
+    for key, val in sd.items():
+        if key.startswith(("encoder", "downsample")):
+            continue
+        new = key
+        if key.startswith("decoder_transformer.layers."):
+            new = (key
+                   .replace(".self_attn.o_proj.", ".self_attn.out_proj.")
+                   .replace(".input_layernorm.", ".norm1.")
+                   .replace(".post_attention_layernorm.", ".norm2.")
+                   .replace(".mlp.fc1.", ".linear1.")
+                   .replace(".mlp.fc2.", ".linear2.")
+                   .replace(".self_attn_layer_scale.scale", ".layer_scale_1.scale")
+                   .replace(".mlp_layer_scale.scale", ".layer_scale_2.scale"))
+        elif key.startswith("quantizer."):
+            new = (key
+                   .replace("quantizer.semantic_residual_vector_quantizer.",
+                            "quantizer.rvq_first.")
+                   .replace("quantizer.acoustic_residual_vector_quantizer.",
+                            "quantizer.rvq_rest."))
+            new = re.sub(r"\.layers\.(\d+)\.codebook\.", r".vq.layers.\1._codebook.", new)
+            new = new.replace("._codebook.embed_sum", "._codebook.embedding_sum")
+            if new.endswith(".initialized") or ".input_proj." in new:
+                continue
+        elif key.startswith("upsample.conv."):
+            new = key.replace("upsample.conv.", "upsample.convtr.")
+        elif key.startswith("decoder.layers."):
+            m = re.match(r"decoder\.layers\.(\d+)\.(.*)", key)
+            pos, rest = int(m.group(1)), m.group(2)
+            if pos in trans_idx:
+                rest = rest.replace("conv.", "convtr.", 1)
+            new = f"decoder.model.{pos}.{rest}"
+        out[new] = val
+    return out
+
+
+def convert_hf_state_dict(sd: dict, cfg: MimiConfig = MimiConfig(), device: torch.device | str = "cpu") -> Params:
+    """``transformers.MimiModel`` state dict -> the JAX package's tree on *device*."""
+    return convert_state_dict(hf_to_moshi_names(sd, cfg), cfg, device)

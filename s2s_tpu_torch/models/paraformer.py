@@ -42,11 +42,12 @@ import math
 from dataclasses import dataclass
 from typing import Any
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from s2s_tpu_torch import weights
-from s2s_tpu_torch.models.common import Params, layer_norm, xla_cumsum
+from s2s_tpu_torch.models.common import HostStateDict, Params, layer_norm, tree_to_device, xla_cumsum
 from s2s_tpu_torch.models.decoder_lm import normal
 
 LFR_M = 7  # stacked frames
@@ -350,3 +351,85 @@ def init_params(cfg: ParaformerConfig, gen: torch.Generator, device: torch.devic
         "cmvn_scale": torch.ones((cfg.input_size,), dtype=torch.float32, device=device),
     }
     return weights.paraformer_params(tree, device)
+
+
+# ---------------------------------------------------------------------------
+# checkpoint conversion: the JAX package's numpy converter, its tree on a device
+# ---------------------------------------------------------------------------
+
+
+def convert_state_dict(sd: dict, cfg: ParaformerConfig = ParaformerConfig(), device: torch.device | str = "cpu") -> Params:
+    """FunASR paraformer checkpoint -> the JAX package's tree on *device* (twin layout, see
+    scripts/_paraformer_torch_twin.py)."""
+    sd = HostStateDict(sd)
+
+    def t(name):
+        return np.asarray(sd[name], np.float32)
+
+    def lin_t(name):
+        return t(name).T
+
+    def enc_layer(prefix):
+        return {
+            "norm1_w": t(f"{prefix}.norm1.weight"), "norm1_b": t(f"{prefix}.norm1.bias"),
+            "qkv_w": lin_t(f"{prefix}.self_attn.linear_q_k_v.weight"),
+            "qkv_b": t(f"{prefix}.self_attn.linear_q_k_v.bias"),
+            # torch depthwise conv (D, 1, K) -> (K, 1, D)
+            "fsmn_w": t(f"{prefix}.self_attn.fsmn_block.weight").transpose(2, 1, 0),
+            "out_w": lin_t(f"{prefix}.self_attn.linear_out.weight"),
+            "out_b": t(f"{prefix}.self_attn.linear_out.bias"),
+            "norm2_w": t(f"{prefix}.norm2.weight"), "norm2_b": t(f"{prefix}.norm2.bias"),
+            "ff_w1": lin_t(f"{prefix}.feed_forward.w_1.weight"),
+            "ff_b1": t(f"{prefix}.feed_forward.w_1.bias"),
+            "ff_w2": lin_t(f"{prefix}.feed_forward.w_2.weight"),
+            "ff_b2": t(f"{prefix}.feed_forward.w_2.bias"),
+        }
+
+    def dec_layer(prefix, with_self=True, with_src=True):
+        p = {
+            "norm1_w": t(f"{prefix}.norm1.weight"), "norm1_b": t(f"{prefix}.norm1.bias"),
+            "ff_w1": lin_t(f"{prefix}.feed_forward.w_1.weight"),
+            "ff_b1": t(f"{prefix}.feed_forward.w_1.bias"),
+            "ff_norm_w": t(f"{prefix}.feed_forward.norm.weight"),
+            "ff_norm_b": t(f"{prefix}.feed_forward.norm.bias"),
+            "ff_w2": lin_t(f"{prefix}.feed_forward.w_2.weight"),
+        }
+        if with_self:
+            p["norm2_w"] = t(f"{prefix}.norm2.weight")
+            p["norm2_b"] = t(f"{prefix}.norm2.bias")
+            p["fsmn_w"] = t(f"{prefix}.self_attn.fsmn_block.weight").transpose(2, 1, 0)
+        if with_src:
+            p["norm3_w"] = t(f"{prefix}.norm3.weight")
+            p["norm3_b"] = t(f"{prefix}.norm3.bias")
+            p["q_w"] = lin_t(f"{prefix}.src_attn.linear_q.weight")
+            p["q_b"] = t(f"{prefix}.src_attn.linear_q.bias")
+            p["kv_w"] = lin_t(f"{prefix}.src_attn.linear_k_v.weight")
+            p["kv_b"] = t(f"{prefix}.src_attn.linear_k_v.bias")
+            p["out_w"] = lin_t(f"{prefix}.src_attn.linear_out.weight")
+            p["out_b"] = t(f"{prefix}.src_attn.linear_out.bias")
+        return p
+
+    params: Params = {
+        "enc0": enc_layer("encoder.encoders0.0"),
+        "enc": [enc_layer(f"encoder.encoders.{i}") for i in range(cfg.n_enc - 1)],
+        "enc_norm_w": t("encoder.after_norm.weight"),
+        "enc_norm_b": t("encoder.after_norm.bias"),
+        "predictor": {
+            "conv_w": t("predictor.cif_conv1d.weight").transpose(2, 1, 0),
+            "conv_b": t("predictor.cif_conv1d.bias"),
+            "out_w": lin_t("predictor.cif_output.weight"),
+            "out_b": t("predictor.cif_output.bias"),
+        },
+        "dec": [dec_layer(f"decoder.decoders.{i}") for i in range(cfg.n_dec)],
+        "dec3": dec_layer("decoder.decoders3.0", with_self=False, with_src=False),
+        "dec_norm_w": t("decoder.after_norm.weight"),
+        "dec_norm_b": t("decoder.after_norm.bias"),
+        "head_w": lin_t("decoder.output_layer.weight"),
+        "head_b": t("decoder.output_layer.bias"),
+        "cmvn_mean": np.zeros((cfg.input_size,), np.float32),
+        "cmvn_scale": np.ones((cfg.input_size,), np.float32),
+    }
+    if "cmvn_mean" in sd:
+        params["cmvn_mean"] = t("cmvn_mean")
+        params["cmvn_scale"] = t("cmvn_scale")
+    return tree_to_device(params, device)

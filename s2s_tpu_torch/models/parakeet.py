@@ -5,6 +5,7 @@ prediction network, additive joint and the TDT greedy decode.
 Layouts follow the JAX package except the depthwise conv of the conformer
 conv module, which is kept in PyTorch's Conv1d layout ``(d, 1, k)`` (the JAX
 tree stores ``(k, 1, d)``; :mod:`s2s_tpu_torch.weights` converts).
+:func:`convert_state_dict` maps an HF or NeMo checkpoint onto the JAX tree.
 
 The TDT decode is a host loop over device tensors with one host read per
 step (token and duration together), where JAX runs one ``lax.while_loop`` on
@@ -21,7 +22,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from s2s_tpu_torch.models.common import Params, layer_norm, layer_slice, linear, n_stacked
+from s2s_tpu_torch.models.common import (
+    Params, device_tensor, host_array, layer_norm, layer_slice, linear, n_stacked, stack_layers,
+)
 from s2s_tpu_torch.models.decoder_lm import normal
 from s2s_tpu_torch.ops import log_mel
 
@@ -460,3 +463,128 @@ def _sub_len_int(length: int, n: int) -> int:
     for _ in range(n):
         length = (length - 1) // 2 + 1
     return length
+
+
+# ---------------------------------------------------------------------------
+# checkpoint conversion (HF transformers ParakeetEncoder naming; NeMo-export
+# names are translated first)
+# ---------------------------------------------------------------------------
+
+_NEMO_TO_HF = {
+    "pre_encode.conv.": "subsampling.layers.",
+    "pre_encode.out.": "subsampling.linear.",
+    ".self_attn.linear_q.": ".self_attn.q_proj.",
+    ".self_attn.linear_k.": ".self_attn.k_proj.",
+    ".self_attn.linear_v.": ".self_attn.v_proj.",
+    ".self_attn.linear_out.": ".self_attn.o_proj.",
+    ".self_attn.linear_pos.": ".self_attn.relative_k_proj.",
+    ".self_attn.pos_bias_u": ".self_attn.bias_u",
+    ".self_attn.pos_bias_v": ".self_attn.bias_v",
+    ".conv.batch_norm.": ".conv.norm.",
+}
+
+
+def _normalize_keys(sd: dict) -> dict:
+    """The JAX package's key renaming; the entries stay as given (each is
+    read on the host when the converter takes it)."""
+    out = {}
+    for k, v in sd.items():
+        if k.startswith("model."):
+            k = k[len("model."):]
+        # both NeMo and HF ParakeetForCTC nest the encoder under "encoder.";
+        # decoder./joint. (NeMo) stay as-is
+        if k.startswith("encoder."):
+            k = k[len("encoder."):]
+        for old, new in _NEMO_TO_HF.items():
+            k = k.replace(old, new)
+        out[k] = v
+    return out
+
+
+def convert_state_dict(sd: dict, cfg: ParakeetConfig, device: torch.device | str = "cpu") -> Params:
+    """HF ``ParakeetEncoder``-naming (or NeMo-export naming) state dict
+    (numpy arrays or tensors) -> the JAX package's tree on *device*, cast to
+    ``cfg.dtype`` there (batch norm in f32).
+
+    Encoder keys follow transformers ``modeling_parakeet.py``; prediction
+    network and joint follow NeMo (``decoder.prediction.*``, ``joint.*``)
+    since HF ships only the CTC variant.
+    """
+    sd = _normalize_keys(sd)
+    dt = cfg.dtype
+
+    def t(name):  # torch Linear weight (out, in) -> (in, out)
+        return device_tensor(host_array(sd[name]).T, dt, device)
+
+    def a(name, dtype=None):
+        return device_tensor(host_array(sd[name]), dtype or dt, device)
+
+    def pointwise(name):  # Conv1d (out, in, 1) -> (in, out)
+        return device_tensor(host_array(sd[name])[:, :, 0].T, dt, device)
+
+    sub: Params = {"conv0": {"w": a("subsampling.layers.0.weight"),
+                             "b": a("subsampling.layers.0.bias")}}
+    for i in range(1, cfg.sub_layers):
+        base = 3 * i - 1  # ModuleList indices: 2,3 then 5,6 (ReLU at 1,4,7)
+        sub[f"dw{i}"] = {"w": a(f"subsampling.layers.{base}.weight"),
+                         "b": a(f"subsampling.layers.{base}.bias")}
+        sub[f"pw{i}"] = {"w": a(f"subsampling.layers.{base + 1}.weight"),
+                         "b": a(f"subsampling.layers.{base + 1}.bias")}
+    sub["out"] = {"w": t("subsampling.linear.weight"), "b": a("subsampling.linear.bias")}
+
+    blocks = []
+    for i in range(cfg.n_layers):
+        p = f"layers.{i}."
+        blocks.append({
+            "ff1_norm": {"w": a(p + "norm_feed_forward1.weight"), "b": a(p + "norm_feed_forward1.bias")},
+            "ff1": {"w1": t(p + "feed_forward1.linear1.weight"), "b1": a(p + "feed_forward1.linear1.bias"),
+                    "w2": t(p + "feed_forward1.linear2.weight"), "b2": a(p + "feed_forward1.linear2.bias")},
+            "attn_norm": {"w": a(p + "norm_self_att.weight"), "b": a(p + "norm_self_att.bias")},
+            "attn": {
+                "wq": t(p + "self_attn.q_proj.weight"), "bq": a(p + "self_attn.q_proj.bias"),
+                "wk": t(p + "self_attn.k_proj.weight"), "bk": a(p + "self_attn.k_proj.bias"),
+                "wv": t(p + "self_attn.v_proj.weight"), "bv": a(p + "self_attn.v_proj.bias"),
+                "wo": t(p + "self_attn.o_proj.weight"), "bo": a(p + "self_attn.o_proj.bias"),
+                "wpos": t(p + "self_attn.relative_k_proj.weight"),
+                "u": a(p + "self_attn.bias_u"), "v": a(p + "self_attn.bias_v"),
+            },
+            "conv_norm": {"w": a(p + "norm_conv.weight"), "b": a(p + "norm_conv.bias")},
+            "conv": {
+                "pw1_w": pointwise(p + "conv.pointwise_conv1.weight"),
+                "pw1_b": a(p + "conv.pointwise_conv1.bias"),
+                # torch depthwise Conv1d (C, 1, k) -> NTC/TIO (k, 1, C)
+                "dw_w": device_tensor(host_array(sd[p + "conv.depthwise_conv.weight"]).transpose(2, 1, 0), dt,
+                                      device),
+                "dw_b": a(p + "conv.depthwise_conv.bias"),
+                "bn_w": a(p + "conv.norm.weight", torch.float32),
+                "bn_b": a(p + "conv.norm.bias", torch.float32),
+                "bn_mean": a(p + "conv.norm.running_mean", torch.float32),
+                "bn_var": a(p + "conv.norm.running_var", torch.float32),
+                "pw2_w": pointwise(p + "conv.pointwise_conv2.weight"),
+                "pw2_b": a(p + "conv.pointwise_conv2.bias"),
+            },
+            "ff2_norm": {"w": a(p + "norm_feed_forward2.weight"), "b": a(p + "norm_feed_forward2.bias")},
+            "ff2": {"w1": t(p + "feed_forward2.linear1.weight"), "b1": a(p + "feed_forward2.linear1.bias"),
+                    "w2": t(p + "feed_forward2.linear2.weight"), "b2": a(p + "feed_forward2.linear2.bias")},
+            "out_norm": {"w": a(p + "norm_out.weight"), "b": a(p + "norm_out.bias")},
+        })
+
+    params: Params = {"sub": sub, "blocks": stack_layers(blocks)}
+
+    if "decoder.prediction.embed.weight" in sd:
+        n_lstm = sum(1 for k in sd if k.startswith("decoder.prediction.dec_rnn.lstm.weight_ih_l"))
+        if n_lstm != cfg.pred_layers:
+            raise ValueError(
+                f"checkpoint has {n_lstm} prediction LSTM layers; config says "
+                f"{cfg.pred_layers} — set ParakeetConfig(pred_layers={n_lstm})"
+            )
+        base = "decoder.prediction.dec_rnn.lstm."
+        layers = [{"wi": t(base + f"weight_ih_l{i}"), "wh": t(base + f"weight_hh_l{i}"),
+                   "bi": a(base + f"bias_ih_l{i}"), "bh": a(base + f"bias_hh_l{i}")} for i in range(n_lstm)]
+        params["pred"] = {"embed": a("decoder.prediction.embed.weight"), "layers": layers}
+        params["joint"] = {
+            "enc_w": t("joint.enc.weight"), "enc_b": a("joint.enc.bias"),
+            "pred_w": t("joint.pred.weight"), "pred_b": a("joint.pred.bias"),
+            "out_w": t("joint.joint_net.2.weight"), "out_b": a("joint.joint_net.2.bias"),
+        }
+    return params

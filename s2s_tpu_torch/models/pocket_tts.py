@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from s2s_tpu_torch.models import decoder_lm, mimi
-from s2s_tpu_torch.models.common import Params, f32_weight, rms_norm
+from s2s_tpu_torch.models.common import HostStateDict, Params, f32_weight, rms_norm, tree_to_device
 from s2s_tpu_torch.models.decoder_lm import DecodeState, DecoderLMConfig, normal
 
 SAMPLE_RATE = mimi.SAMPLE_RATE
@@ -400,3 +400,83 @@ class PocketTTS:
                    max_frames: int | None = None) -> np.ndarray:
         parts = [a for a, _ in self.stream(text, voice=voice, max_frames=max_frames)]
         return np.concatenate(parts) if parts else np.zeros(0, np.float32)
+
+
+# ---------------------------------------------------------------------------
+# checkpoint conversion: the JAX package's numpy converter, its tree on a device
+# ---------------------------------------------------------------------------
+
+
+def convert_state_dict(sd: dict, cfg: PocketTTSConfig = PocketTTSConfig(), device: torch.device | str = "cpu") -> Params:
+    """moshi-style delayed-streams LM layout -> the JAX package's tree on *device*.  Expected keys
+    (mirrored by ``scripts/_pocket_torch_twin.py``):
+
+    - ``text_emb.weight``; ``emb.{k}.weight`` (audio streams, each with the
+      trailing "empty" row)
+    - ``transformer.layers.{i}.{self_attn.{q,k,v,o}_proj|norm1|norm2|
+      gating.linear_in/linear_out}.weight`` — backbone (rmsnorm weights
+      under ``norm{1,2}.alpha`` or ``.weight``); ``out_norm.alpha|weight``
+    - ``depformer_in.{k}.weight``; ``depformer_emb.{k}.weight``;
+      ``depformer.layers.{i}...`` (same block layout); ``depformer_norm``;
+      ``linears.{k}.weight`` (per-slot heads; slot 0 carries the EOS row)
+    - the Mimi decoder converts separately (``--family mimi``).
+    """
+    sd = HostStateDict(sd)
+
+    def t(name):
+        return np.asarray(sd[name], np.float32)
+
+    def norm_w(prefix):
+        for suffix in (".alpha", ".weight"):
+            if prefix + suffix in sd:
+                w = np.asarray(sd[prefix + suffix], np.float32)
+                return w.reshape(-1)  # moshi stores alpha as (1, 1, d)
+        raise KeyError(prefix)
+
+    def lm_tree(prefix, lm_cfg: DecoderLMConfig, final_norm_key):
+        layers = []
+        for i in range(lm_cfg.n_layers):
+            lp = f"{prefix}.layers.{i}"
+            if f"{lp}.self_attn.in_proj_weight" in sd:
+                wq, wk, wv = np.split(t(f"{lp}.self_attn.in_proj_weight"), 3, axis=0)
+            else:
+                wq = t(f"{lp}.self_attn.q_proj.weight")
+                wk = t(f"{lp}.self_attn.k_proj.weight")
+                wv = t(f"{lp}.self_attn.v_proj.weight")
+            wo_key = (f"{lp}.self_attn.out_proj.weight"
+                      if f"{lp}.self_attn.out_proj.weight" in sd
+                      else f"{lp}.self_attn.o_proj.weight")
+            gate_key = (f"{lp}.gating.linear_in.weight"
+                        if f"{lp}.gating.linear_in.weight" in sd else None)
+            if gate_key:
+                # moshi gating: linear_in packs [gate; up] rows
+                w_in = t(gate_key)
+                w_gate, w_up = np.split(w_in, 2, axis=0)
+                w_down = t(f"{lp}.gating.linear_out.weight")
+            else:
+                w_gate = t(f"{lp}.mlp.gate_proj.weight")
+                w_up = t(f"{lp}.mlp.up_proj.weight")
+                w_down = t(f"{lp}.mlp.down_proj.weight")
+            layers.append({
+                "attn_norm": norm_w(f"{lp}.norm1"),
+                "wq": wq.T, "wk": wk.T, "wv": wv.T, "wo": t(wo_key).T,
+                "mlp_norm": norm_w(f"{lp}.norm2"),
+                "w_gate": w_gate.T, "w_up": w_up.T, "w_down": w_down.T,
+            })
+        stacked = {k: np.stack([l[k] for l in layers]) for k in layers[0]}
+        return {"layers": stacked, "final_norm": norm_w(final_norm_key)}
+
+    n_q = cfg.n_q
+    p: Params = {
+        "backbone": lm_tree("transformer", cfg.backbone, "out_norm"),
+        "text_embed": t("text_emb.weight"),
+        "audio_embeds": np.stack([t(f"emb.{k}.weight") for k in range(n_q)]),
+        "dep": lm_tree("depformer", cfg.dep, "depformer_norm"),
+        "dep_in": np.stack([t(f"depformer_in.{k}.weight").T for k in range(n_q)]),
+        "dep_bos": t("depformer_bos") if "depformer_bos" in sd
+        else np.zeros(cfg.dep.d_model, np.float32),
+        "dep_embeds": np.stack([t(f"depformer_emb.{k}.weight") for k in range(n_q - 1)]),
+        "dep_head0": t("linears.0.weight").T,
+        "dep_heads": np.stack([t(f"linears.{k}.weight").T for k in range(1, n_q)]),
+    }
+    return tree_to_device(p, device)

@@ -11,9 +11,11 @@ read back once, as in the JAX package's fused chunk program.
 
 The cross-session batched talker programs that the serving scheduler
 dispatches are the tail programs (``*_tail`` below), which update the batched
-state in place (:mod:`s2s_tpu_torch.parallel.batched_decode`).  Not ported
-yet (ROADMAP): the legacy batched programs, the one-shot ``synthesize``
-program, voice cloning from reference audio, and the checkpoint converters.
+state in place (:mod:`s2s_tpu_torch.parallel.batched_decode`).  The
+checkpoint converters (:func:`convert_state_dict`, :func:`convert_c2w_state_dict`)
+give the JAX package's trees.  Not ported yet (ROADMAP): the legacy batched
+programs, the one-shot ``synthesize`` program, voice cloning from reference
+audio.
 """
 
 from __future__ import annotations
@@ -33,12 +35,15 @@ from s2s_tpu_torch.models.common import (
     Params,
     apply_rope,
     attention,
+    device_tensor,
     f32_weight,
+    host_array,
     layer_slice,
     linear,
     n_stacked,
     rms_norm,
     rope_frequencies,
+    stack_layers,
 )
 from s2s_tpu_torch.models.decoder_lm import DecoderLMConfig, DecodeState, normal
 from s2s_tpu_torch.ops.quant import TTS_MODES, check_mode, quantize_tree
@@ -669,3 +674,154 @@ class Qwen3TTS:
                 return
             if cancel_check is not None and cancel_check():
                 return
+
+
+# ---------------------------------------------------------------------------
+# checkpoint conversion (transformers Qwen3-Omni talker/code2wav naming)
+# ---------------------------------------------------------------------------
+
+
+def convert_c2w_state_dict(sd: dict, cfg: Code2WavConfig, device: torch.device | str = "cpu") -> Params:
+    """transformers ``Qwen3OmniMoeCode2Wav`` state dict (numpy arrays or
+    tensors) -> the JAX package's tree on *device* (convolutions in its
+    NTC/TIO layouts, :func:`s2s_tpu_torch.weights.c2w_params` takes them to
+    PyTorch's)."""
+    dt = cfg.dtype
+
+    def a(name, dtype=None):
+        return device_tensor(host_array(sd[name]), dtype or dt, device)
+
+    def t(name):
+        return device_tensor(host_array(sd[name]).T, dt, device)
+
+    def conv(name):  # torch Conv1d (out, in/groups, k) -> NTC/TIO (k, in/g, out)
+        return {"w": device_tensor(host_array(sd[name + ".weight"]).transpose(2, 1, 0), dt, device),
+                "b": a(name + ".bias")}
+
+    def tconv(name):  # torch ConvTranspose1d (in, out, k) -> flipped (k, in, out)
+        w = host_array(sd[name + ".weight"]).transpose(2, 0, 1)[::-1].copy()
+        return {"w": device_tensor(w, dt, device), "b": a(name + ".bias")}
+
+    def snake(name):
+        return {"alpha": a(name + ".alpha", torch.float32), "beta": a(name + ".beta", torch.float32)}
+
+    perm = decoder_lm._rope_perm(cfg.head_dim)
+
+    def rope_perm(name):
+        w = host_array(sd[name])  # (n_heads*hd, d)
+        w = w.reshape(-1, cfg.head_dim, w.shape[-1])[:, perm, :].reshape(-1, w.shape[-1])
+        return device_tensor(w.T, dt, device)
+
+    layers = []
+    for i in range(cfg.n_layers):
+        p = f"pre_transformer.layers.{i}."
+        layers.append({
+            "attn_norm": a(p + "input_layernorm.weight"),
+            "wq": rope_perm(p + "self_attn.q_proj.weight"),
+            "wk": rope_perm(p + "self_attn.k_proj.weight"),
+            "wv": t(p + "self_attn.v_proj.weight"),
+            "wo": t(p + "self_attn.o_proj.weight"),
+            "attn_scale": a(p + "self_attn_layer_scale.scale"),
+            "mlp_norm": a(p + "post_attention_layernorm.weight"),
+            "w_gate": t(p + "mlp.gate_proj.weight"),
+            "w_up": t(p + "mlp.up_proj.weight"),
+            "w_down": t(p + "mlp.down_proj.weight"),
+            "mlp_scale": a(p + "mlp_layer_scale.scale"),
+        })
+
+    upsample = []
+    for i in range(len(cfg.upsampling_ratios)):
+        p = f"upsample.{i}."
+        upsample.append({
+            "tconv": tconv(p + "0.conv"),
+            "convnext": {
+                "dw_w": device_tensor(host_array(sd[p + "1.dwconv.conv.weight"]).transpose(2, 1, 0), dt, device),
+                "dw_b": a(p + "1.dwconv.conv.bias"),
+                "ln_w": a(p + "1.norm.weight"), "ln_b": a(p + "1.norm.bias"),
+                "pw1_w": t(p + "1.pwconv1.weight"), "pw1_b": a(p + "1.pwconv1.bias"),
+                "pw2_w": t(p + "1.pwconv2.weight"), "pw2_b": a(p + "1.pwconv2.bias"),
+                "gamma": a(p + "1.gamma"),
+            },
+        })
+
+    dec_blocks = []
+    for i in range(len(cfg.upsample_rates)):
+        p = f"decoder.{i + 1}.block."
+        units = []
+        for j in range(3):
+            q = p + f"{j + 2}."
+            units.append({
+                "act1": snake(q + "act1"), "conv1": conv(q + "conv1.conv"),
+                "act2": snake(q + "act2"), "conv2": conv(q + "conv2.conv"),
+            })
+        dec_blocks.append({"act": snake(p + "0"), "tconv": tconv(p + "1.conv"), "units": units})
+
+    n_dec = len(cfg.upsample_rates)
+    return {
+        "embed": a("code_embedding.weight"),
+        "layers": stack_layers(layers),
+        "final_norm": a("pre_transformer.norm.weight"),
+        "upsample": upsample,
+        "dec_in": conv("decoder.0.conv"),
+        "dec_blocks": dec_blocks,
+        "dec_act": snake(f"decoder.{n_dec + 1}"),
+        "dec_out": conv(f"decoder.{n_dec + 2}.conv"),
+    }
+
+
+def convert_state_dict(sd: dict, cfg: Qwen3TTSConfig, device: torch.device | str = "cpu") -> Params:
+    """Full Qwen3-TTS checkpoint (talker + code predictor + code2wav; numpy
+    arrays or tensors) using transformers Qwen3-Omni talker naming -> the
+    JAX package's tree on *device*:
+
+    - ``talker.model.layers.*`` / ``talker.codec_head`` — dense Qwen3 talker
+    - ``talker.code_predictor.model.layers.*``, ``.codec_embedding.{i}``,
+      ``.lm_head.{i}`` — MTP code predictor
+    - ``code2wav.*`` — vocoder
+    Optional TTS-specific tables: ``talker.text_embed``, ``talker.speakers``,
+    ``talker.tts_pad_embed``, ``talker.spk_proj``.
+    """
+    dt = cfg.dtype
+
+    def sub(prefix, rename_to="model."):  # the entries themselves: each converter reads its own
+        return {rename_to + k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+
+    def a(name):
+        return device_tensor(host_array(sd[name]), dt, device)
+
+    def t(name):
+        return device_tensor(host_array(sd[name]).T, dt, device)
+
+    talker_sd = sub("talker.model.")
+    talker_sd["model.embed_tokens.weight"] = sd["talker.model.embed_tokens.weight"]
+    talker = decoder_lm.convert_hf_state_dict(talker_sd, cfg.lm, device)
+    talker.pop("lm_head", None)
+
+    cp_sd = sub("talker.code_predictor.model.")
+    cp_sd["model.embed_tokens.weight"] = np.zeros((1, cfg.cp.d_model), np.float32)  # unused
+    cp = decoder_lm.convert_hf_state_dict(cp_sd, cfg.cp, device)
+    cp.pop("lm_head", None)
+    cp.pop("embed", None)
+
+    n_res = cfg.n_q - 1
+    cp_embeds = torch.stack([a(f"talker.code_predictor.model.codec_embedding.{i}.weight") for i in range(n_res)])
+    cp_heads = torch.stack([t(f"talker.code_predictor.lm_head.{i}.weight") for i in range(n_res)])
+
+    c2w_sd = {k[len("code2wav."):]: v for k, v in sd.items() if k.startswith("code2wav.")}
+
+    def opt(name, shape):
+        return a(name) if name in sd else torch.zeros(shape, dtype=dt, device=device)
+
+    d = cfg.lm.d_model
+    return {
+        "talker": talker,
+        "codec_head": t("talker.codec_head.weight"),
+        "text_embed": opt("talker.text_embed.weight", (cfg.text_vocab, d)),
+        "speakers": opt("talker.speakers.weight", (cfg.n_speakers, d)),
+        "pad_embed": opt("talker.tts_pad_embed", (d,)),
+        "spk_proj": opt("talker.spk_proj.weight", (80, d)),
+        "cp": cp,
+        "cp_embeds": cp_embeds,
+        "cp_heads": cp_heads,
+        "c2w": convert_c2w_state_dict(c2w_sd, cfg.c2w, device),
+    }

@@ -19,8 +19,9 @@ f32 under them (``torch.backends.cuda.matmul.allow_tf32`` is off), and the
 serve must not flip a process-wide flag that other models' numerics depend
 on.  Convolution weights are PyTorch's ``(out, in, k)``;
 :func:`s2s_tpu_torch.weights.silero_params` carries the JAX package's
-``(k, in, out)`` trees across.  The step has a batch dimension for
-concurrent sessions (:class:`s2s_tpu_torch.runtime.batcher.BatchedSileroVAD`).
+``(k, in, out)`` trees across, and :func:`convert_silero_state_dict` maps
+the published checkpoint onto such a tree.  The step has a batch dimension
+for concurrent sessions (:class:`s2s_tpu_torch.runtime.batcher.BatchedSileroVAD`).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from s2s_tpu_torch.models.common import HostStateDict, tree_to_device
 from s2s_tpu_torch.models.decoder_lm import normal
 
 Params = dict[str, Any]
@@ -167,3 +169,28 @@ class SileroVAD:
 
     def reset_states(self) -> None:
         self.state = SileroState.create(1, device=self.device)
+
+
+def convert_silero_state_dict(sd: dict[str, Any], device: torch.device | str = "cpu") -> Params:
+    """Map the silero-vad v5 jit ``state_dict`` (numpy arrays or tensors)
+    onto the JAX package's tree on *device*.
+
+    Torch conv weights are (out, in, k) -> (k, in, out); LSTMCell
+    weight_ih (4h, in) -> (in, 4h) with torch gate order i,f,g,o preserved.
+    Key names follow the published silero_vad.jit module tree
+    (``_model.stft`` is replaced by the fixed DFT basis).
+    """
+    sd = HostStateDict(sd)
+    convs = []
+    for name in ["_model.encoder.0", "_model.encoder.1", "_model.encoder.2", "_model.encoder.3"]:
+        w = sd[f"{name}.reparam_conv.weight"]
+        convs.append({"w": w.transpose(2, 1, 0), "b": sd[f"{name}.reparam_conv.bias"]})
+    wi = sd["_model.decoder.rnn.weight_ih"]
+    wh = sd["_model.decoder.rnn.weight_hh"]
+    b = sd["_model.decoder.rnn.bias_ih"] + sd["_model.decoder.rnn.bias_hh"]
+    head_w = sd["_model.decoder.decoder.2.weight"]  # (1, 128, 1)
+    return tree_to_device({
+        "convs": convs,
+        "lstm": {"wi": wi.T, "wh": wh.T, "b": b},
+        "head": {"w": head_w.reshape(1, -1).T, "b": sd["_model.decoder.decoder.2.bias"]},
+    }, device)

@@ -34,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from s2s_tpu_torch import weights
-from s2s_tpu_torch.models.common import Params, attention, layer_norm
+from s2s_tpu_torch.models.common import HostStateDict, Params, attention, layer_norm, tree_to_device
 from s2s_tpu_torch.models.decoder_lm import normal
 
 
@@ -182,4 +182,48 @@ def init_params(cfg: VisionConfig, gen: torch.Generator, device: torch.device | 
         "layers": [layer() for _ in range(cfg.n_layers)],
         "post_ln_w": ones(d), "post_ln_b": zeros(d),
         "proj_w": rnd((d * cfg.scale_factor ** 2, cfg.d_out), (d * cfg.scale_factor ** 2) ** -0.5),
+    }, device)
+
+
+# ---------------------------------------------------------------------------
+# checkpoint conversion: the JAX package's numpy converter, its tree on a device
+# ---------------------------------------------------------------------------
+
+
+def convert_hf_state_dict(sd: dict, cfg: VisionConfig = VisionConfig(), device: torch.device | str = "cpu") -> Params:
+    """SmolVLMForConditionalGeneration state dict (``model.vision_model.*``,
+    ``model.connector.*``) -> the JAX package's tree on *device*."""
+    sd = HostStateDict(sd)
+
+    def t(name):
+        for prefix in ("model.", ""):
+            if prefix + name in sd:
+                return np.asarray(sd[prefix + name], np.float32)
+        raise KeyError(name)
+
+    def lin_t(name):
+        return t(name).T
+
+    layers = []
+    for i in range(cfg.n_layers):
+        pre = f"vision_model.encoder.layers.{i}"
+        layers.append({
+            "ln1_w": t(f"{pre}.layer_norm1.weight"), "ln1_b": t(f"{pre}.layer_norm1.bias"),
+            "q_w": lin_t(f"{pre}.self_attn.q_proj.weight"), "q_b": t(f"{pre}.self_attn.q_proj.bias"),
+            "k_w": lin_t(f"{pre}.self_attn.k_proj.weight"), "k_b": t(f"{pre}.self_attn.k_proj.bias"),
+            "v_w": lin_t(f"{pre}.self_attn.v_proj.weight"), "v_b": t(f"{pre}.self_attn.v_proj.bias"),
+            "o_w": lin_t(f"{pre}.self_attn.out_proj.weight"), "o_b": t(f"{pre}.self_attn.out_proj.bias"),
+            "ln2_w": t(f"{pre}.layer_norm2.weight"), "ln2_b": t(f"{pre}.layer_norm2.bias"),
+            "fc1_w": lin_t(f"{pre}.mlp.fc1.weight"), "fc1_b": t(f"{pre}.mlp.fc1.bias"),
+            "fc2_w": lin_t(f"{pre}.mlp.fc2.weight"), "fc2_b": t(f"{pre}.mlp.fc2.bias"),
+        })
+    return tree_to_device({
+        # torch conv (O, I, kh, kw) -> HWIO
+        "patch_w": t("vision_model.embeddings.patch_embedding.weight").transpose(2, 3, 1, 0),
+        "patch_b": t("vision_model.embeddings.patch_embedding.bias"),
+        "pos_emb": t("vision_model.embeddings.position_embedding.weight"),
+        "layers": layers,
+        "post_ln_w": t("vision_model.post_layernorm.weight"),
+        "post_ln_b": t("vision_model.post_layernorm.bias"),
+        "proj_w": lin_t("connector.modality_projection.proj.weight"),
     }, device)

@@ -38,7 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from s2s_tpu_torch import weights
-from s2s_tpu_torch.models.common import layer_norm
+from s2s_tpu_torch.models.common import HostStateDict, layer_norm, tree_to_device
 from s2s_tpu_torch.models.decoder_lm import normal
 
 Params = dict[str, Any]
@@ -625,3 +625,140 @@ class VitsTTS:
         step = int(chunk_s * self.cfg.sample_rate)
         for i in range(0, max(len(audio), 1), step):
             yield audio[i: i + step], self.cfg.sample_rate
+
+
+# ---------------------------------------------------------------------------
+# checkpoint conversion: the JAX package's numpy converter, its tree on a device
+# ---------------------------------------------------------------------------
+
+
+def _wn_weight(sd, prefix: str) -> np.ndarray:
+    """Fuse torch weight-norm (weight_g/weight_v or parametrizations form)."""
+    if f"{prefix}.weight" in sd:
+        return np.asarray(sd[f"{prefix}.weight"])
+    if f"{prefix}.weight_g" in sd:
+        g, v = sd[f"{prefix}.weight_g"], sd[f"{prefix}.weight_v"]
+    else:
+        g = sd[f"{prefix}.parametrizations.weight.original0"]
+        v = sd[f"{prefix}.parametrizations.weight.original1"]
+    g, v = np.asarray(g, np.float64), np.asarray(v, np.float64)
+    norm = np.linalg.norm(v.reshape(v.shape[0], -1), axis=1).reshape((-1,) + (1,) * (v.ndim - 1))
+    return (g * v / norm).astype(np.float32)
+
+
+def convert_hf_state_dict(sd: dict, cfg: VitsConfig = VitsConfig(), device: torch.device | str = "cpu") -> Params:
+    """transformers VitsModel (facebook/mms-tts-*) -> the JAX package's tree on *device*.
+    Reference layout: transformers models/vits/modeling_vits.py."""
+    sd = HostStateDict(sd)
+
+    def t(name):  # torch tensor -> np
+        return np.asarray(sd[name], np.float32)
+
+    def lin_t(name):  # conv1x1 / Linear (O, I[, 1]) -> (I, O)
+        w = t(name)
+        if w.ndim == 3:
+            w = w[:, :, 0]
+        return w.T
+
+    def conv_t(name):  # (O, I, K) -> (K, I, O)
+        return t(name).transpose(2, 1, 0)
+
+    def dds_list(prefix, n):
+        out = []
+        for i in range(n):
+            out.append({
+                "dw_w": conv_t(f"{prefix}.convs_dilated.{i}.weight"),
+                "dw_b": t(f"{prefix}.convs_dilated.{i}.bias"),
+                "pw_w": lin_t(f"{prefix}.convs_pointwise.{i}.weight"),
+                "pw_b": t(f"{prefix}.convs_pointwise.{i}.bias"),
+                "ln1_w": t(f"{prefix}.norms_1.{i}.weight"),
+                "ln1_b": t(f"{prefix}.norms_1.{i}.bias"),
+                "ln2_w": t(f"{prefix}.norms_2.{i}.weight"),
+                "ln2_b": t(f"{prefix}.norms_2.{i}.bias"),
+            })
+        return out
+
+    layers = []
+    for i in range(cfg.n_layers):
+        pre = f"text_encoder.encoder.layers.{i}"
+        layers.append({
+            "q_w": lin_t(f"{pre}.attention.q_proj.weight"), "q_b": t(f"{pre}.attention.q_proj.bias"),
+            "k_w": lin_t(f"{pre}.attention.k_proj.weight"), "k_b": t(f"{pre}.attention.k_proj.bias"),
+            "v_w": lin_t(f"{pre}.attention.v_proj.weight"), "v_b": t(f"{pre}.attention.v_proj.bias"),
+            "o_w": lin_t(f"{pre}.attention.out_proj.weight"), "o_b": t(f"{pre}.attention.out_proj.bias"),
+            "rel_k": t(f"{pre}.attention.emb_rel_k")[0],
+            "rel_v": t(f"{pre}.attention.emb_rel_v")[0],
+            "ln1_w": t(f"{pre}.layer_norm.weight"), "ln1_b": t(f"{pre}.layer_norm.bias"),
+            "ffn_w1": conv_t(f"{pre}.feed_forward.conv_1.weight"),
+            "ffn_b1": t(f"{pre}.feed_forward.conv_1.bias"),
+            "ffn_w2": conv_t(f"{pre}.feed_forward.conv_2.weight"),
+            "ffn_b2": t(f"{pre}.feed_forward.conv_2.bias"),
+            "ln2_w": t(f"{pre}.final_layer_norm.weight"), "ln2_b": t(f"{pre}.final_layer_norm.bias"),
+        })
+
+    conv_flows = []
+    for j in range(1, cfg.dp_flows + 1):
+        pre = f"duration_predictor.flows.{j}"
+        conv_flows.append({
+            "pre_w": lin_t(f"{pre}.conv_pre.weight"), "pre_b": t(f"{pre}.conv_pre.bias"),
+            "dds": dds_list(f"{pre}.conv_dds", cfg.ds_layers),
+            "proj_w": lin_t(f"{pre}.conv_proj.weight"), "proj_b": t(f"{pre}.conv_proj.bias"),
+        })
+
+    flow = []
+    for i in range(cfg.prior_flows):
+        pre = f"flow.flows.{i}"
+        wn = {"in_w": [], "in_b": [], "rs_w": [], "rs_b": []}
+        for j in range(cfg.wn_layers):
+            wn["in_w"].append(_wn_weight(sd, f"{pre}.wavenet.in_layers.{j}").transpose(2, 1, 0))
+            wn["in_b"].append(t(f"{pre}.wavenet.in_layers.{j}.bias"))
+            rs = _wn_weight(sd, f"{pre}.wavenet.res_skip_layers.{j}")[:, :, 0].T
+            wn["rs_w"].append(rs)
+            wn["rs_b"].append(t(f"{pre}.wavenet.res_skip_layers.{j}.bias"))
+        flow.append({
+            "pre_w": lin_t(f"{pre}.conv_pre.weight"), "pre_b": t(f"{pre}.conv_pre.bias"),
+            "post_w": lin_t(f"{pre}.conv_post.weight"), "post_b": t(f"{pre}.conv_post.bias"),
+            "wn": wn,
+        })
+
+    nk = len(cfg.resblock_kernels)
+    ups_w, ups_b, res = [], [], []
+    for i in range(len(cfg.upsample_rates)):
+        w = t(f"decoder.upsampler.{i}.weight")  # (I, O, K)
+        ups_w.append(w[:, :, ::-1].transpose(2, 0, 1).copy())  # flip -> (K, I, O)
+        ups_b.append(t(f"decoder.upsampler.{i}.bias"))
+        for j in range(nk):
+            pre = f"decoder.resblocks.{i * nk + j}"
+            blk = {"c1_w": [], "c1_b": [], "c2_w": [], "c2_b": []}
+            for d in range(len(cfg.resblock_dilations[j])):
+                blk["c1_w"].append(conv_t(f"{pre}.convs1.{d}.weight"))
+                blk["c1_b"].append(t(f"{pre}.convs1.{d}.bias"))
+                blk["c2_w"].append(conv_t(f"{pre}.convs2.{d}.weight"))
+                blk["c2_b"].append(t(f"{pre}.convs2.{d}.bias"))
+            res.append(blk)
+
+    return tree_to_device({
+        "text_encoder": {
+            "embed": t("text_encoder.embed_tokens.weight"),
+            "layers": layers,
+            "proj_w": lin_t("text_encoder.project.weight"),
+            "proj_b": t("text_encoder.project.bias"),
+        },
+        "dp": {
+            "pre_w": lin_t("duration_predictor.conv_pre.weight"),
+            "pre_b": t("duration_predictor.conv_pre.bias"),
+            "dds": dds_list("duration_predictor.conv_dds", cfg.ds_layers),
+            "proj_w": lin_t("duration_predictor.conv_proj.weight"),
+            "proj_b": t("duration_predictor.conv_proj.bias"),
+            "ea_translate": t("duration_predictor.flows.0.translate")[:, 0],
+            "ea_log_scale": t("duration_predictor.flows.0.log_scale")[:, 0],
+            "conv_flows": conv_flows,
+        },
+        "flow": flow,
+        "dec": {
+            "pre_w": conv_t("decoder.conv_pre.weight"),
+            "pre_b": t("decoder.conv_pre.bias"),
+            "ups_w": ups_w, "ups_b": ups_b, "res": res,
+            "post_w": conv_t("decoder.conv_post.weight"),
+        },
+    }, device)

@@ -17,7 +17,9 @@ kernel through :func:`s2s_tpu_torch.models.common.attention` at every
 duration bucket.  The decoder's self-attention KV caches are written in
 place; its position is a host integer.  Greedy decoding is a host loop
 (one host read per token) where JAX runs a ``lax.while_loop``; the tokens
-are the same.  Sharding specs and the HF converter are not ported.
+are the same.  :func:`convert_hf_state_dict` maps a transformers checkpoint
+onto the JAX layout (the tree a converted ``.npz`` holds).  Sharding specs
+are not ported.
 """
 
 from __future__ import annotations
@@ -30,7 +32,8 @@ import torch
 import torch.nn.functional as F
 
 from s2s_tpu_torch.models.common import (
-    KVCache, Params, attention, causal_mask, f32_weight, layer_norm, layer_slice, linear,
+    KVCache, Params, attention, causal_mask, device_tensor, f32_weight, host_array, layer_norm, layer_slice, linear,
+    stack_layers,
 )
 from s2s_tpu_torch.models.decoder_lm import normal
 
@@ -296,3 +299,70 @@ def detect_language_logits(params: Params, cfg: WhisperConfig, encoded: torch.Te
     sot = torch.tensor([[SOT]], dtype=torch.int32, device=encoded.device)
     logits, _ = decode_tokens(params, cfg, sot, state)
     return logits[:, -1]
+
+
+# ── HF checkpoint conversion ─────────────────────────────────────────
+
+
+def convert_hf_state_dict(sd: dict[str, Any], cfg: WhisperConfig, encoder_only: bool = False,
+                          device: torch.device | str = "cpu") -> Params:
+    """Map transformers ``WhisperForConditionalGeneration`` weights (numpy
+    arrays or tensors) onto the JAX package's tree, each tensor cast to
+    ``cfg.dtype`` on *device* (``model.encoder.conv1.weight`` is
+    (d, n_mels, 3) -> (3, n_mels, d); :func:`s2s_tpu_torch.weights.whisper_to_torch`
+    takes it to the Conv1d layout).  ``encoder_only`` skips the decoder side
+    (Smart Turn's classifiers).  The JAX converter's tree, bit for bit."""
+    dt = cfg.dtype
+
+    def arr(name):
+        return device_tensor(host_array(sd[name]), dt, device)
+
+    def lin_t(name):
+        return device_tensor(host_array(sd[name]).T, dt, device)
+
+    def attn(prefix):
+        return {
+            "wq": lin_t(prefix + "q_proj.weight"), "bq": arr(prefix + "q_proj.bias"),
+            "wk": lin_t(prefix + "k_proj.weight"),
+            "wv": lin_t(prefix + "v_proj.weight"), "bv": arr(prefix + "v_proj.bias"),
+            "wo": lin_t(prefix + "out_proj.weight"), "bo": arr(prefix + "out_proj.bias"),
+        }
+
+    def block(prefix, cross):
+        p = {
+            "ln1_w": arr(prefix + "self_attn_layer_norm.weight"),
+            "ln1_b": arr(prefix + "self_attn_layer_norm.bias"),
+            "attn": attn(prefix + "self_attn."),
+            "ln2_w": arr(prefix + "final_layer_norm.weight"),
+            "ln2_b": arr(prefix + "final_layer_norm.bias"),
+            "mlp_w1": lin_t(prefix + "fc1.weight"), "mlp_b1": arr(prefix + "fc1.bias"),
+            "mlp_w2": lin_t(prefix + "fc2.weight"), "mlp_b2": arr(prefix + "fc2.bias"),
+        }
+        if cross:
+            p["lnx_w"] = arr(prefix + "encoder_attn_layer_norm.weight")
+            p["lnx_b"] = arr(prefix + "encoder_attn_layer_norm.bias")
+            p["xattn"] = attn(prefix + "encoder_attn.")
+        return p
+
+    def conv(name):
+        return device_tensor(host_array(sd[name]).transpose(2, 1, 0), dt, device)
+
+    params = {
+        "conv1_w": conv("model.encoder.conv1.weight"),
+        "conv1_b": arr("model.encoder.conv1.bias"),
+        "conv2_w": conv("model.encoder.conv2.weight"),
+        "conv2_b": arr("model.encoder.conv2.bias"),
+        "enc_pos": arr("model.encoder.embed_positions.weight"),
+        "enc_blocks": stack_layers([block(f"model.encoder.layers.{i}.", False) for i in range(cfg.n_enc_layers)]),
+        "enc_ln_w": arr("model.encoder.layer_norm.weight"),
+        "enc_ln_b": arr("model.encoder.layer_norm.bias"),
+    }
+    if not encoder_only:
+        params.update({
+            "tok_emb": arr("model.decoder.embed_tokens.weight"),
+            "dec_pos": arr("model.decoder.embed_positions.weight"),
+            "dec_blocks": stack_layers([block(f"model.decoder.layers.{i}.", True) for i in range(cfg.n_dec_layers)]),
+            "dec_ln_w": arr("model.decoder.layer_norm.weight"),
+            "dec_ln_b": arr("model.decoder.layer_norm.bias"),
+        })
+    return params

@@ -6,7 +6,8 @@ kernel (:mod:`s2s_tpu_torch.ops.log_mel`), the port's Whisper encoder
 (:mod:`s2s_tpu_torch.models.whisper`, whose attention is the flash kernel),
 then mean-pool, a linear head and a sigmoid.  Where the JAX package jits
 that chain, here it is a plain function on tensors on an explicit device.
-``SmartTurnResult`` and ``prepare_audio`` are the JAX package's, copied.
+``SmartTurnResult`` and ``prepare_audio`` are the JAX package's, copied;
+:func:`convert_state_dict` is the JAX converter on the port's devices.
 
 ``predict_fn`` is injectable for tests (scripted analyzers).
 """
@@ -22,7 +23,7 @@ import torch
 
 from s2s_tpu_torch import weights
 from s2s_tpu_torch.models import whisper
-from s2s_tpu_torch.models.common import Params
+from s2s_tpu_torch.models.common import HostStateDict, Params, device_tensor
 from s2s_tpu_torch.ops.log_mel import log_mel_spectrogram
 
 MAX_WINDOW_S = 8.0
@@ -103,6 +104,31 @@ class SmartTurnAnalyzer:
         prob = float(self._predict(prepare_audio(audio, sample_rate)))
         ms = (time.perf_counter() - t0) * 1000.0
         return SmartTurnResult(complete=prob > self.threshold, probability=prob, inference_ms=ms)
+
+
+def convert_state_dict(sd: dict, cfg: whisper.WhisperConfig | None = None,
+                       device: torch.device | str = "cpu") -> Params:
+    """Smart-Turn checkpoint (numpy arrays or tensors) -> the JAX package's
+    tree on *device*: a Whisper ENCODER (HF naming, ``model.encoder.*`` /
+    ``encoder.*``) plus a ``classifier.{weight,bias}`` linear head over the
+    mean-pooled encoder output, the head in f32."""
+    cfg = cfg or whisper.WhisperConfig.tiny()
+    sd = HostStateDict(sd)
+    enc_sd = {}
+    for k in sd:
+        if k.startswith("encoder."):
+            enc_sd["model." + k] = sd[k]
+        elif k.startswith("model.encoder."):
+            enc_sd[k] = sd[k]
+    params = whisper.convert_hf_state_dict(enc_sd, cfg, encoder_only=True, device=device)
+    head_w = sd.get("classifier.weight")
+    if head_w is None:
+        raise KeyError("classifier.weight missing from smart-turn state dict")
+    params["head"] = {
+        "w": device_tensor(head_w.T, torch.float32, device),  # torch (1, d) -> (d, 1)
+        "b": device_tensor(np.asarray(sd.get("classifier.bias", np.zeros(1))), torch.float32, device),
+    }
+    return params
 
 
 def load_checkpoint(path: str) -> Params:

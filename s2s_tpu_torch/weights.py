@@ -4,8 +4,10 @@ Accepts what the JAX side produces or stores: nested dicts/lists of numpy
 arrays (or anything ``np.asarray`` reads, bf16 included), the JAX
 package's quantized weights (``QuantWeight``, ``DynQuantWeight``,
 ``Quant4Weight``), or an ``unflatten_params`` tree loaded from a converted
-``.npz`` checkpoint.  Returns the same tree as torch tensors on a
-given device, with the layout changes the port makes:
+``.npz`` checkpoint, where a bf16 leaf reads back as the two-byte void
+array of its bits (``|V2``: numpy has no bf16 of its own; float16 is
+stored as ``<f2``).  Returns the same tree as torch tensors on a given
+device, with the layout changes the port makes:
 
 - convolution weights stored by the JAX package as NTC/TIO ``(k, in/g, out)``
   become PyTorch's Conv1d ``(out, in/g, k)``;
@@ -15,10 +17,11 @@ given device, with the layout changes the port makes:
   bias per direction become a ``torch.nn.LSTM`` (the bias as ``bias_ih``,
   ``bias_hh`` zero).
 
-Those are the inverses of the transforms in the JAX package's checkpoint
-converters (``convert_c2w_state_dict``, parakeet ``convert_state_dict``,
-whisper and vits ``convert_hf_state_dict``, the kokoro, mimi and chattts
-``convert_state_dict``).
+Those are the inverses of the transforms in the checkpoint converters
+(``convert_c2w_state_dict``, parakeet ``convert_state_dict``, whisper and
+vits ``convert_hf_state_dict``, the kokoro, mimi and chattts
+``convert_state_dict``): the port's, in each model module, which give the
+JAX package's trees bit for bit, and the JAX package's.
 """
 
 from __future__ import annotations
@@ -38,7 +41,8 @@ def to_tensor(value: Any, device: torch.device | str) -> torch.Tensor:
     if isinstance(value, torch.Tensor):
         return value.to(device)
     arr = np.asarray(value)
-    if arr.dtype.name == "bfloat16":  # ml_dtypes bf16: reinterpret the bits
+    # ml_dtypes bf16, or its bits as an .npz stores them (|V2): reinterpret
+    if arr.dtype.name == "bfloat16" or (arr.dtype.kind == "V" and arr.dtype.itemsize == 2):
         return torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16).to(device)
     return torch.from_numpy(np.array(arr)).to(device)  # a writable copy
 

@@ -20,6 +20,15 @@ package's host code have not drifted from their originals.
   device-side definitions, listed with the reason.  Every port module whose
   path also exists in the JAX package is in exactly one of these lists or in
   the list of the port's own modules.
+- The checkpoint converters: every ``convert_*`` function of a JAX module
+  has its counterpart, under the same name, in the port's module at the
+  same path, taking a ``device``; the conversion tool
+  ``tools/convert_checkpoint.py`` shares ``parse_kaldi_mvn`` with
+  ``scripts/convert_checkpoint.py`` and has its own reader, writer and main;
+  no module of the port imports ``safetensors`` or ``ml_dtypes`` (neither
+  is on the card's machine), and the tool converts a BF16 safetensors file
+  in a subprocess where ``jax``, ``s2s_tpu``, ``safetensors`` and
+  ``ml_dtypes`` are all blocked, its output loading through the port.
 """
 
 import ast
@@ -58,9 +67,10 @@ SHARED = {
         ["vad/handler.py"], {}, {"VADHandler.setup"},
         "setup hands its device to the Smart Turn analyzer and the default Silero model it builds"),
     "vad/smart_turn.py": (
-        ["vad/smart_turn.py"], {}, {"SmartTurnAnalyzer.__init__", "load_checkpoint"},
+        ["vad/smart_turn.py"], {}, {"SmartTurnAnalyzer.__init__", "load_checkpoint", "convert_state_dict"},
         "folded: the result type, the window and predict are copied; the analyzer runs the port's "
-        "log-mel kernel and encoder on its device, the checkpoint loads through the port's registry"),
+        "log-mel kernel and encoder on its device, the checkpoint loads through the port's registry, the "
+        "converter casts on the device it is given (held bit-equal by tests/test_torch_port_convert.py)"),
     "audio/resample.py": (
         ["audio/resample.py"], {}, set(),
         "folded: the scipy path and the polyphase filter are copied; the jitted on-device polyphase is "
@@ -85,21 +95,26 @@ SHARED = {
         ["models/paraformer.py"], {},
         {"ParaformerConfig.dtype", "lfr_cmvn", "_lin", "_fsmn", "_sanm_attention", "_enc_layer", "_sinusoid_positions",
          "encode", "cif_alphas", "cif_fire", "_cross_attention", "_dec_ff", "_dec_layer", "decode", "forward",
-         "transcribe_tokens", "init_params"},
+         "transcribe_tokens", "init_params", "convert_state_dict"},
         "folded: the configuration is copied; the frontend (LFR + CMVN on the device, held bit-equal to the "
-        "numpy function by tests/test_torch_port_paraformer.py) and the model are the port's"),
+        "numpy function by tests/test_torch_port_paraformer.py) and the model are the port's; the converter "
+        "is the JAX one on a host view of the state dict, its tree moved to a device"),
     "models/vision.py": (
         ["models/vision.py"], {},
-        {"VisionConfig.dtype", "VisionConfig.test_tiny", "_lin", "encode_image", "init_params"},
-        "folded: the configuration and the image preprocessing are copied; the tower is the port's"),
+        {"VisionConfig.dtype", "VisionConfig.test_tiny", "_lin", "encode_image", "init_params",
+         "convert_hf_state_dict"},
+        "folded: the configuration and the image preprocessing are copied; the tower is the port's; the "
+        "converter is the JAX one on a host view of the state dict, its tree moved to a device"),
     "models/deepfilter.py": (
         ["models/deepfilter.py"], {},
         {"init_params", "init_state", "_causal_conv2d", "_stft", "enhance", "DeepFilterEnhancer.__init__",
          "DeepFilterEnhancer.__call__", *(f"DFState.{f}" for f in ("gru_h", "erb_mean", "mag_mean", "erb_prev",
-                                                                  "erb_prev1", "df_prev", "df_prev1", "spec_hist"))},
+                                                                  "erb_prev1", "df_prev", "df_prev1", "spec_hist")),
+         "convert_state_dict"},
         "folded: the configuration, the ERB filterbank and the enhancer's buckets are copied; the state holds "
         "tensors, the frames run through the port's filter_frames (loops only over the recurrences) on its "
-        "device, the enhancer takes a device"),
+        "device, the enhancer takes a device; the converter is the JAX one on a host view of the state dict, "
+        "its tree moved to a device"),
     "ops/mel.py": (
         ["ops/mel.py"], {}, {"frame_audio", "log_mel_spectrogram"},
         "folded: the numpy filterbank and DFT bases are copied; framing and the log-mel run in torch "
@@ -327,3 +342,137 @@ def test_shared_definitions_equal_their_jax_source(path):
             assert src == matches[0], f"{path}: {name} drifted from the JAX package"
             compared += 1
     assert compared > 0
+
+
+# ── the checkpoint converters and the conversion tool ────────────────
+
+#: JAX module -> its converters; the port's module at the same path has each
+CONVERTERS = {
+    "models/decoder_lm.py": ["convert_hf_state_dict"],
+    "models/whisper.py": ["convert_hf_state_dict"],
+    "vad/smart_turn.py": ["convert_state_dict"],
+    "models/qwen3_tts.py": ["convert_state_dict", "convert_c2w_state_dict"],
+    "models/parakeet.py": ["convert_state_dict"],
+    "models/silero_vad.py": ["convert_silero_state_dict"],
+    "models/paraformer.py": ["convert_state_dict"],
+    "models/vision.py": ["convert_hf_state_dict"],
+    "models/vits.py": ["convert_hf_state_dict"],
+    "models/kokoro.py": ["convert_state_dict"],
+    "models/mimi.py": ["convert_state_dict", "convert_hf_state_dict"],
+    "models/pocket_tts.py": ["convert_state_dict"],
+    "models/chattts.py": ["convert_state_dict"],
+    "models/deepfilter.py": ["convert_state_dict"],
+}
+#: the tool, copied from the JAX script: (its source, the tool's own definitions, why)
+TOOL = ("tools/convert_checkpoint.py", ROOT / "scripts" / "convert_checkpoint.py",
+        {"load_state_dict", "flatten", "main"},
+        "load_state_dict keeps tensors (bf16 included) and reads safetensors itself; flatten writes bf16 "
+        "as |V2 bits; main adds --device and writes uncompressed one array at a time")
+
+
+def _functions(text: str) -> dict[str, ast.FunctionDef]:
+    return {n.name: n for n in ast.parse(text).body if isinstance(n, ast.FunctionDef)}
+
+
+def test_every_jax_converter_has_its_port_counterpart_taking_a_device():
+    found = {}
+    for path in sorted(JAX.rglob("*.py")):
+        rel = str(path.relative_to(JAX))
+        names = sorted(n for n in _functions(path.read_text()) if n.startswith("convert_"))
+        if names:
+            found[rel] = names
+    assert found == {k: sorted(v) for k, v in CONVERTERS.items()}
+    for rel, names in CONVERTERS.items():
+        port = _functions(_port_text(rel))
+        for name in names:
+            args = [a.arg for a in port[name].args.args + port[name].args.kwonlyargs]
+            assert "device" in args, f"{rel}: {name} takes no device"
+
+
+def test_tool_shares_the_jax_scripts_definitions():
+    path, script, own, why = TOOL
+    assert why
+    port_defs = _definitions(_port_text(path))
+    jax_defs = _definitions(script.read_text())
+    assert own <= set(port_defs) and own <= set(jax_defs)
+    shared = [name for name in jax_defs if name in port_defs and name not in own]
+    assert shared == ["parse_kaldi_mvn"]
+    for name in shared:
+        assert port_defs[name] == jax_defs[name], name
+
+
+def test_no_module_of_the_port_imports_safetensors_or_ml_dtypes():
+    found = []
+    for path in _python_files():
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [alias.name for alias in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            found += [f"{path.relative_to(ROOT)}:{node.lineno} {n}" for n in names
+                      if n.split(".")[0] in ("safetensors", "ml_dtypes")]
+    assert not found, found
+
+
+_BLOCKED_CONVERT = """
+import importlib.abc, subprocess, sys
+
+BLOCKED = ("jax", "s2s_tpu", "safetensors", "ml_dtypes")
+
+
+class _Blocked(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"{name} is blocked")
+        return None
+
+
+sys.meta_path.insert(0, _Blocked())
+for name in list(sys.modules):
+    if name.split(".")[0] in BLOCKED:
+        del sys.modules[name]
+sys.path.insert(0, sys.argv[1])
+import runpy
+
+import numpy as np
+import torch
+
+from s2s_tpu_torch.models.decoder_lm import DecoderLMConfig
+from s2s_tpu_torch.registry import _load_checkpoint
+from s2s_tpu_torch.tools import convert_checkpoint as cc
+from s2s_tpu_torch import weights
+
+tmp = sys.argv[2]
+cfg = DecoderLMConfig.smollm2_1_7b()
+tiny = DecoderLMConfig(vocab_size=64, d_model=32, n_layers=2, n_heads=4, n_kv_heads=2, d_ff=64, dtype=cfg.dtype)
+DecoderLMConfig.smollm2_1_7b = staticmethod(lambda: tiny)
+gen = torch.Generator().manual_seed(0)
+src = {"model.embed_tokens.weight": torch.randn((64, 32), generator=gen).to(torch.bfloat16),
+       "model.norm.weight": torch.ones(32, dtype=torch.bfloat16)}
+for i in range(2):
+    p = f"model.layers.{i}."
+    for name, shape in (("input_layernorm", (32,)), ("post_attention_layernorm", (32,)),
+                        ("self_attn.q_proj", (32, 32)), ("self_attn.k_proj", (16, 32)), ("self_attn.v_proj", (16, 32)),
+                        ("self_attn.o_proj", (32, 32)), ("mlp.gate_proj", (64, 32)), ("mlp.up_proj", (64, 32)),
+                        ("mlp.down_proj", (32, 64))):
+        src[p + name + ".weight"] = torch.randn(shape, generator=gen).to(torch.bfloat16)
+cc.save_safetensors(f"{tmp}/model.safetensors", src)
+sys.argv = ["convert_checkpoint", "--family", "smollm2-1.7b", "--src", f"{tmp}/model.safetensors",
+            "--out", f"{tmp}/lm.npz", "--device", "cpu"]
+runpy.run_module("s2s_tpu_torch.tools.convert_checkpoint", run_name="__main__")
+tree = weights.tree_to_torch(_load_checkpoint(f"{tmp}/lm.npz"), "cpu")
+assert tree["embed"].dtype == torch.bfloat16 and torch.equal(tree["embed"], src["model.embed_tokens.weight"])
+assert torch.equal(tree["layers"]["wv"][1], src["model.layers.1.self_attn.v_proj.weight"].T)
+leaked = sorted(k for k, v in sys.modules.items() if v is not None and k.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+print("OK")
+"""
+
+
+def test_tool_converts_a_bf16_safetensors_file_with_jax_and_both_readers_blocked(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_CONVERT, str(ROOT), str(tmp_path)], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.splitlines()[-1] == "OK" and "wrote " in proc.stdout, proc.stdout

@@ -36,7 +36,8 @@ import time
 
 import pytest
 
-from chip_smoke import flat_tree, tts_flags  # the card's serves' flags with another TTS; a tree as an npz
+from chip_smoke import tts_flags  # the card's serves' flags with another TTS
+from s2s_tpu_torch.tools.convert_checkpoint import flatten  # a tree as an npz's arrays
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -434,7 +435,7 @@ def test_tiny_cpu_serve_with_the_enhancer_answers_a_text_and_a_voice_turn(monkey
 
     tree = deepfilter.init_params(deepfilter.DeepFilterConfig(), torch.Generator().manual_seed(0))
     path = tmp_path / "deepfilter.npz"
-    np.savez(path, **flat_tree(tree))
+    np.savez(path, **flatten(tree))
     calls = []
     real = deepfilter.DeepFilterEnhancer.__call__
 
