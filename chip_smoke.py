@@ -13,9 +13,10 @@ Phases, each printed on its own line:
    (``weight_only_phase``: the launch plan printed at every row, a
    duplicated row bit-equal, ``torch._weight_int8pack_mm`` and the bf16
    ``torch.matmul`` of the dequantized weight timed beside it, and the other
-   regime's time at up to 8 rows), then ``decode_attention`` (tail form at the SmolLM2-1.7B and Qwen3-TTS
-   talker shapes and the talker at its max_seq_len 4096, whose keys stream
-   through a ring of tiles, with ``F.scaled_dot_product_attention`` timed
+   regime's time at up to 8 rows; also at one rank's shapes of two,
+   ``tp_serve``'s), then ``decode_attention`` (tail form at the SmolLM2-1.7B and Qwen3-TTS
+   talker shapes, the talker at its max_seq_len 4096, whose keys stream
+   through a ring of tiles, and one rank's heads of two, with ``F.scaled_dot_product_attention`` timed
    beside it at every shape and the launch plan (cluster size, tile rows,
    stages) printed; rows duplicated at B 4 and 16
    must come out bitwise equal; then the Pallas-contract form, whose caches
@@ -221,8 +222,28 @@ Phases, each printed on its own line:
    none); then ``forward`` over a ``SCORE_PROMPT``-token prompt at its last
    position against ``prefill``'s logits, within ``SCORE_ULPS`` bf16 ulps.
 
-After every serve a ``serve_memory`` line gives what stays allocated on the
-card once the phase has returned, before and after a garbage collection.
+30. ``tp_parity`` (after phase 4): tensor parallelism over ``TP_RANKS``
+   ranks, rank 0 here and the others in processes of their own, both on
+   this card through gloo (``TP_REHEARSAL``): the tiny f32 LM's slot prefill
+   and tail chunk and the tiny talker's fused prefill and gathered chunk
+   (head dim 64, the decode-attention kernel's) over the ranks against one
+   rank: tokens and codes equal, audio within ``TP_TALKER_ATOL``;
+   SmolLM2-1.7B's int8 prefill logits within ``TP_LOGITS_REL``; the
+   transport's all_reduce time; with two or more cards the same over NCCL;
+31. ``tp_serve`` (after phase 6): on one card ``serve --model_parallel 2``
+   must raise the device-count error; then the 4-session serve with
+   ``--tts_quantize int8 --model_parallel 2`` (``TP_SERVE_FLAGS``), full
+   width and depth, the follower started by the serve on the same card
+   (a rehearsal, not TP's speed on two cards): four concurrent text turns
+   answered with audio and response.done, an audio turn, the int8 and
+   decode-attention launches of each rank (> 0, equal), each rank's
+   allocated bytes, each engine's replicated state equal on every rank.
+
+Since ``tp_serve`` joined, the serves other than phase 31 run
+SmolLM2-1.7B (except phases 6 and 15), the Qwen3-TTS talker and its code
+predictor cut in depth (``SERVE_DEPTHS``, widths kept).  After every serve a ``serve_memory`` line
+gives what stays allocated on the card once the phase has returned, before
+and after a garbage collection.
 
 Phases 3, 4, 8, 9, 10, 12, 13, 14, 21, 23, 25, 27 and 28 run with TF32 off, so that f32
 products are compared in full f32; the serves and phases 16-20 run with
@@ -243,7 +264,8 @@ the deployment, Kokoro, MMS, Pocket and ChatTTS serves' as
 ``whisper_serve_lm_launches``); the log-mel's ``launches_by_caller`` counts
 those four TTS serves and the Paraformer serve too, the flash kernel's the
 Whisper and the Paraformer/VLM serves, and its ``siglip`` entry SigLIP's
-shape); the last line is
+shape; the int8 and decode-attention entries carry ``tp_serve``'s launches,
+leader first, as ``tp_serve_launches_by_rank``); the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
 before those lines.
 """
@@ -338,17 +360,24 @@ PARAKEET_MEL_HEADLINE = (4, 3)
 PARAKEET_MEL_RTOL = 1e-4
 #: decode attention at the serving shapes: (name, H, KV, hd, T, tails); T is
 #: the engine's --*_batched_max_t, the tails the steady chunk first, then the
-#: priority / ramp chunk sizes; last the talker at its max_seq_len, whose
-#: keys do not fit a CTA at once and stream through a ring of tiles
+#: priority / ramp chunk sizes; then the talker at its max_seq_len, whose
+#: keys do not fit a CTA at once and stream through a ring of tiles; last
+#: one rank's heads of two (tp_serve)
 ATTN_SHAPES = [("smollm2-1.7b", 32, 32, 64, 512, (6, 1, 2, 4, 8, 12)),
                ("qwen3-tts-talker", 16, 8, 128, 192, (3, 2, 4)),
-               ("qwen3-tts-talker-4096", 16, 8, 128, 4096, (3,))]
+               ("qwen3-tts-talker-4096", 16, 8, 128, 4096, (3,)),
+               ("smollm2-1.7b-rank-of-2", 16, 16, 64, 512, (6, 1, 2, 4, 8, 12)),
+               ("qwen3-tts-talker-rank-of-2", 8, 4, 128, 192, (3, 2, 4))]
 ATTN_ROWS = [1, 4, 16]
 #: the decode-attention shape in the JSON line: the 4-session LM steady chunk
 ATTN_HEADLINE = ("smollm2-1.7b", 4, 6)
 #: (K, N) of the int8 linears: SmolLM2-1.7B, then the Qwen3-TTS talker and
 #: code predictor
 INT8_SHAPES = [(2048, 2048), (2048, 8192), (8192, 2048), (2048, 1024), (2048, 6144), (6144, 2048)]
+#: (K, N) of one rank's int8 linears of two (tp_serve), where they differ
+#: from the above: SmolLM2-1.7B's wo, gate/up and down, then the talker's
+#: wk/wv, gate/up and down (wq's 2048 -> 1024 is above); int8_matmul only
+TP_INT8_SHAPES = [(1024, 2048), (2048, 4096), (4096, 2048), (2048, 512), (2048, 3072), (3072, 2048)]
 #: rows: single-session decode, 2, the 4-session step, the width buckets 8
 #: and 16, 17 (past a bucket), the 32- and 64-token prompt buckets
 INT8_ROWS = [1, 2, 4, 8, 16, 17, 32, 64]
@@ -456,6 +485,22 @@ CHATTTS_SERVE_LAYERS = 10
 #: served synthesis goes through (timed; Pocket and ChatTTS stream)
 TTS_SERVES = {"kokoro": ("kokoro_serve", "synthesize"), "facebookMMS": ("mms_serve", "synthesize"),
               "pocket": ("pocket_serve", "stream"), "chatTTS": ("chattts_serve", "stream")}
+#: the depths of SmolLM2-1.7B (24 layers), of the Qwen3-TTS talker (28) and
+#: of its code predictor (5, run 15 times a frame) in the serves other than
+#: the tensor-parallel one, cut (their widths kept) so the whole run keeps
+#: its time since ``tp_serve`` joined it (PERF.md §4): serve name -> (LM,
+#: talker, code-predictor layers), None where the serve keeps the model
+#: whole (the main path's, ``batched_serve``, keeps its int8 LM whole; the
+#: Whisper serve's LM comes from a converted checkpoint of its published
+#: depth)
+SERVE_LM_LAYERS, SERVE_TALKER_LAYERS, SERVE_CP_LAYERS = 12, 14, 2
+SERVE_TTS = (SERVE_TALKER_LAYERS, SERVE_CP_LAYERS)
+SERVE_DEPTHS = {"serve": (SERVE_LM_LAYERS, *SERVE_TTS),
+                "batched_serve": (None, *SERVE_TTS),
+                **{TTS_SERVES[t][0]: (SERVE_LM_LAYERS, None, None) for t in TTS_SERVES},
+                "quant_serve": (SERVE_LM_LAYERS, *SERVE_TTS),
+                "whisper_serve": (None, *SERVE_TTS),
+                "deployment_serve": (SERVE_LM_LAYERS, *SERVE_TTS)}
 #: tiny Paraformer, SigLIP with the fixture's text model, and DeepFilter,
 #: each from its torch twin's (or transformers') fixture through the JAX
 #: converters, stored as converted checkpoints (``tests/test_torch_port_
@@ -531,6 +576,26 @@ CHECKPOINTS = {"smollm2-1.7b": ("smollm2-1.7b.safetensors", torch.bfloat16),
                "distil-large-v3": ("distil-large-v3.safetensors", torch.float16),
                "smart-turn": ("smart-turn.pt", torch.float32)}
 CONVERT_TIMEOUT_S = 300
+#: tensor parallelism (``--model_parallel``): two ranks.  On one card both
+#: run on it and their collectives go through gloo (NCCL takes one card a
+#: rank): the rehearsal of a serve over two cards.  With two or more cards
+#: visible ``tp_parity`` also runs over NCCL on two of them.
+TP_RANKS = 2
+TP_REHEARSAL = (("cuda:0",) * TP_RANKS, "gloo")
+TP_NCCL = (tuple(f"cuda:{r}" for r in range(TP_RANKS)), "nccl")
+#: the tensor-parallel serve: the four-session flags with the talker int8 too
+TP_SERVE_FLAGS = [*BATCHED_FLAGS, "--tts_quantize", "int8", "--model_parallel", str(TP_RANKS)]
+#: the tiny talker's audio over the ranks against one rank (f32 sums in
+#: another order): the JAX package's bound for its sharded talker chunk
+#: (``tests/test_sharded_inference.py``)
+TP_TALKER_ATOL = 2e-3
+#: SmolLM2-1.7B's prefill logits (int8, bf16 activations) over the ranks
+#: against one rank on the same weights, relative to max|one rank|: each
+#: row-parallel sum rounds every rank's partial to bf16 before the f32 sum,
+#: one rounding more than one device's product, 48 times over the layers
+TP_LOGITS_REL = 3e-2
+#: the all_reduce timed on each transport: four sessions' rows at SmolLM2's width
+TP_BLOCK = (4, 2048)
 L2_BYTES = 50 << 20
 #: H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, dense bf16 FLOP/s, dense int8 OP/s
 HBM_BPS = 3.35e12
@@ -653,8 +718,8 @@ def weight_only_phase(dev: torch.device, fmt: str) -> dict:
     planes = 1 if int8 else 2
     wrapper, ref = (mm.int8_matmul, mm.int8_matmul_reference) if int8 else (m4.int4_matmul, m4.int4_matmul_reference)
     entry = "s2s_int8_matmul" if int8 else "s2s_int4_matmul"
-    shapes, row_counts, headline_key = (INT8_SHAPES, INT8_ROWS, HEADLINE) if int8 else (INT4_SHAPES, INT4_ROWS,
-                                                                                        INT4_HEADLINE)
+    shapes, row_counts, headline_key = ((INT8_SHAPES + TP_INT8_SHAPES, INT8_ROWS, HEADLINE) if int8
+                                        else (INT4_SHAPES, INT4_ROWS, INT4_HEADLINE))
     gen = torch.Generator(device=dev).manual_seed(0 if int8 else 7)
     rows, max_err, headline = [], 0.0, None
     for k, n in shapes:
@@ -937,6 +1002,194 @@ def tiny_batched_parity_phase(dev: torch.device) -> None:
     check(launches > 0, "the tiny batched programs launched the decode-attention kernel")
     phase("tiny_batched_parity", lm_tokens=list(lm["cpu"][0].shape), talker_audio_rel_err=rel,
           decode_attention_launches=launches)
+
+
+def _tp_ranks(fn, layout: tuple):
+    """Run ``fn(rank, store, layout)`` on every rank of *layout* (devices,
+    transport): rank 0 here, the others in processes of their own
+    (``tp_rank_main``) that share a ``TCPStore`` on 127.0.0.1; returns rank
+    0's result.  Fails if another rank fails or outlives the ranks' timeout
+    (``mesh.TP_TIMEOUT_S``), after which it is killed."""
+    import torch.distributed as dist
+    from datetime import timedelta
+
+    from s2s_tpu_torch.parallel.mesh import TP_TIMEOUT_S, TPLayout
+
+    tp_layout = TPLayout(*layout)
+    store = dist.TCPStore("127.0.0.1", 0, tp_layout.size, True, timeout=timedelta(seconds=TP_TIMEOUT_S),
+                          wait_for_workers=False)
+    root = os.path.dirname(os.path.abspath(__file__))
+    code = (f"import chip_smoke; chip_smoke.tp_rank_main({fn.__name__!r}, {{rank}}, {store.port}, "
+            f"{tp_layout.devices!r}, {tp_layout.transport!r})")
+    procs = [subprocess.Popen([sys.executable, "-c", code.format(rank=rank)], cwd=root,
+                              env=dict(os.environ, PYTHONPATH=root)) for rank in range(1, tp_layout.size)]
+    try:
+        result = fn(0, store, tp_layout)
+        deadline = time.monotonic() + TP_TIMEOUT_S
+        for proc in procs:
+            proc.wait(timeout=max(deadline - time.monotonic(), 1))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    check(all(proc.returncode == 0 for proc in procs), f"{fn.__name__}: ranks exited {[p.returncode for p in procs]}")
+    return result
+
+
+def tp_rank_main(name: str, rank: int, port: int, devices: tuple, transport: str) -> None:
+    """A rank of ``_tp_ranks`` in a process of its own."""
+    import torch.distributed as dist
+    from datetime import timedelta
+
+    from s2s_tpu_torch.parallel.mesh import TP_TIMEOUT_S, TPLayout
+
+    store = dist.TCPStore("127.0.0.1", port, is_master=False, timeout=timedelta(seconds=TP_TIMEOUT_S))
+    with tf32_mode(False):
+        globals()[name](rank, store, TPLayout(devices, transport))
+
+
+def _tp_tiny_programs(dev: torch.device, lm_tp, tts_tp) -> dict:
+    """The tiny f32 LM's slot prefill and tail chunk, and the tiny talker's
+    fused prefill + ramp chunk and a 4-frame gathered chunk, head dim 64 (the
+    decode-attention kernel's), on *dev*: over the ranks of the groups, or
+    on one device with None.  The weights are drawn from seeds on *dev*."""
+    from s2s_tpu_torch.models import decoder_lm, qwen3_tts
+    from s2s_tpu_torch.parallel import batched_decode as bd
+    from s2s_tpu_torch.registry import _tp_shard_lm
+
+    cfg = decoder_lm.DecoderLMConfig(vocab_size=256, d_model=128, n_layers=2, n_heads=4, n_kv_heads=2, d_ff=256,
+                                     max_seq_len=128, head_dim_override=64, dtype=torch.float32)
+    params = decoder_lm.init_params(cfg, torch.Generator(device=dev).manual_seed(6), dev)
+    if lm_tp is not None:
+        params = _tp_shard_lm(params, cfg, lm_tp, "the tp_parity LM")
+    rng = np.random.default_rng(6)
+    prompt = torch.from_numpy(rng.integers(1, 256, (1, 16)).astype(np.int32)).to(dev)
+    state = bd.init_multi_state(cfg, 2, max_t=64, device=dev, tp=lm_tp)
+    tok, state = bd.prefill_slot(params, cfg, prompt, 12, state, 0, lm_tp)
+    tokens = torch.zeros((2,), dtype=torch.int32, device=dev)
+    tokens[0] = tok
+    toks, _, _, state, _ = bd.decode_chunk_tail(params, cfg, tokens, state, 8, -1,
+                                                torch.tensor([True, False], device=dev), lm_tp)
+
+    qcfg = qwen3_tts.Qwen3TTSConfig.tiny()
+    qcfg = dataclasses.replace(qcfg, lm=dataclasses.replace(qcfg.lm, head_dim_override=64))
+    qparams = qwen3_tts.init_params(qcfg, torch.Generator(device=dev).manual_seed(7), dev)
+    if tts_tp is not None:
+        qparams = dict(qparams, talker=_tp_shard_lm(qparams["talker"], qcfg.lm, tts_tp, "the tp_parity talker",
+                                                    talker=True))
+    text = torch.from_numpy(rng.integers(1, 256, (1, 16)).astype(np.int32)).to(dev)
+    tstate = bd.init_multi_state(qcfg.lm, 2, max_t=64, device=dev, tp=tts_tp)
+    ctx = torch.zeros((2, 4, qcfg.n_q), dtype=torch.int32, device=dev)
+    embeds = torch.zeros((2, qcfg.lm.d_model), device=dev)
+    first, _, emb, tstate, ctx = qwen3_tts.prefill_and_first_chunk_slot_tail(
+        qparams, qcfg, text, qparams["speakers"][:1], tstate, ctx, 2, 0, tts_tp)
+    embeds[0] = emb
+    chunk, eos, embeds, tstate, ctx = qwen3_tts.decode_chunk_audio_gathered_tail(
+        qparams, qcfg, embeds, tstate, ctx, 4, torch.tensor([0, 0], device=dev), tts_tp)
+    return {"lm_tokens": toks[:, 0].cpu(), "talker_audio": torch.cat([first, chunk[0]]).cpu(),
+            "talker_codes": ctx[0].cpu()}
+
+
+def _all_reduce_us(tp, dev: torch.device, calls: int = 200) -> float:
+    """Wall microseconds of one ``all_reduce`` of a TP_BLOCK bf16 block
+    (summed in f32), every rank calling it *calls* times after a warm-up."""
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    x = torch.randn(TP_BLOCK, device=dev).to(torch.bfloat16)
+    for _ in range(20):
+        tp.all_reduce(x)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        tp.all_reduce(x)
+    sync()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def _tp_logits(dev: torch.device, tp) -> dict:
+    """SmolLM2-1.7B drawn as the serve draws it (``registry._random_init``,
+    seed 0 on the card), int8, a 64-token prompt's prefill logits (f32) at
+    its last position: over the ranks of *tp* on their shards, and on rank 0
+    also of the whole tree on its own ("one")."""
+    from s2s_tpu_torch.llm.local_backend import lm_config
+    from s2s_tpu_torch.models import decoder_lm
+    from s2s_tpu_torch.ops.quant import quantize_mode
+    from s2s_tpu_torch.parallel import batched_decode as bd
+    from s2s_tpu_torch.registry import _random_init, _tp_shard_lm
+
+    cfg = lm_config("smollm2-1.7b")
+    whole = quantize_mode(_random_init(decoder_lm.init_params, cfg, dev, "tp_parity logits"), "int8")
+    prompt = torch.from_numpy(np.random.default_rng(8).integers(1, cfg.vocab_size, (1, 64)).astype(np.int32))
+
+    def logits(params, group):
+        row = bd._slot_row(bd.init_multi_state(cfg, 1, max_t=128, device=dev, tp=group), 0)
+        x = decoder_lm.embed_tokens(params["embed"], prompt.to(dev), cfg, group).to(cfg.dtype)
+        hidden = bd._prefill_row_caches(params, cfg, x, row, group)
+        return decoder_lm._logits(hidden[:, -1:], params, cfg, group)[0, 0].cpu()
+
+    out = {"tp": logits(_tp_shard_lm(whole, cfg, tp, "--llm_model_size smollm2-1.7b"), tp)}
+    if tp.rank == 0:
+        out["one"] = logits(whole, None)
+    return out
+
+
+def tp_parity_rank(rank: int, store, layout) -> dict:
+    """One rank of ``tp_parity``: the tiny programs over the ranks, the
+    full-width LM's prefill logits (``_tp_logits``), then the transport's
+    all_reduce time; rank 0 returns them."""
+    from s2s_tpu_torch.parallel.mesh import TPRuntime
+
+    runtime = TPRuntime(rank, layout, store)
+    try:
+        out = _tp_tiny_programs(runtime.device, runtime.group("lm"), runtime.group("tts"))
+        out["collectives"] = {name: g.collectives for name, g in runtime.groups.items()}
+        out["logits"] = _tp_logits(runtime.device, runtime.group("lm"))
+        out["all_reduce_us"] = _all_reduce_us(runtime.group("lm"), runtime.device)
+    finally:
+        runtime.shutdown()
+    return out
+
+
+def tp_parity_phase(dev: torch.device) -> dict:
+    """``tp_parity``: the tiny f32 LM and talker programs over TP_RANKS
+    ranks, both on this card through gloo (``TP_REHEARSAL``), against the
+    same programs on one rank of the card: LM tokens equal, talker codes
+    equal and audio within TP_TALKER_ATOL; SmolLM2-1.7B's int8 prefill
+    logits over the ranks against one rank within TP_LOGITS_REL of
+    max|one|; each transport's all_reduce time.  With two or more cards, the
+    same over NCCL on two cards."""
+    from s2s_tpu_torch.ops import decode_attention as da
+
+    ref = _tp_tiny_programs(dev, None, None)
+    layouts = [TP_REHEARSAL] + ([TP_NCCL] if torch.cuda.device_count() >= TP_RANKS else [])
+    result = {}
+    for devices, transport in layouts:
+        before = da.concat_attention.launches
+        got = _tp_ranks(tp_parity_rank, (devices, transport))
+        where = f"tp_parity over {transport} on {devices}"
+        check(torch.equal(got["lm_tokens"], ref["lm_tokens"]), f"{where}: LM tokens {got['lm_tokens']} vs "
+              f"{ref['lm_tokens']} on one rank")
+        check(torch.equal(got["talker_codes"], ref["talker_codes"]), f"{where}: talker codes")
+        err = float((got["talker_audio"] - ref["talker_audio"]).abs().max())
+        check(got["talker_audio"].shape == ref["talker_audio"].shape and err <= TP_TALKER_ATOL,
+              f"{where}: talker audio |d| {err} > {TP_TALKER_ATOL}")
+        launches = da.concat_attention.launches - before
+        check(launches > 0, f"{where}: rank 0 launched no decode attention")
+        tp_logits, one = got["logits"]["tp"], got["logits"]["one"]
+        rel = float((tp_logits - one).abs().max() / one.abs().max())
+        check(bool(torch.isfinite(tp_logits).all()) and rel <= TP_LOGITS_REL,
+              f"{where}: SmolLM2-1.7B prefill logits over the ranks vs one: rel {rel} > {TP_LOGITS_REL}")
+        result[transport] = {"devices": list(devices), "lm_tokens": got["lm_tokens"].tolist(),
+                             "talker_audio_max_abs_err": err, "atol": TP_TALKER_ATOL,
+                             "rank0_decode_attention_launches": launches, "collectives": got["collectives"],
+                             "prefill_logits": {"max_rel_err": rel, "rtol": TP_LOGITS_REL,
+                                                "argmax_equal": int(tp_logits.argmax()) == int(one.argmax())},
+                             "all_reduce_us": got["all_reduce_us"], "block": list(TP_BLOCK)}
+    phase("tp_parity", **result)
+    return result
 
 
 def _int_mm_ms(x, qs, scale) -> float:
@@ -1500,6 +1753,97 @@ def batched_serve_phase(dev: torch.device, card: list[str]) -> dict[str, int]:
           transcription_batches=stt["batches"])
     phase("trace", **trace)
     return launches
+
+
+def tp_serve_phase(dev: torch.device, card: list[str], parity: dict) -> dict[str, int]:
+    """``tp_serve``: the 4-session batched serve at full width and depth with
+    ``--tts_quantize int8 --model_parallel 2`` (``TP_SERVE_FLAGS``), both
+    ranks on this card through gloo (``TP_REHEARSAL``, a rehearsal: not TP's
+    speed on two cards).  On a one-card machine ``serve --model_parallel 2``
+    on its own must first raise the device-count error.  Then the serve's
+    build (its warm-up mirrored on the follower), one concurrent round of
+    four text turns, each answered with audio and response.done, and an
+    audio turn.  The int8 and decode-attention kernels' launches on each
+    rank from the build to the end (each > 0, equal across ranks), each
+    rank's allocated bytes after a collection (the leader's also above
+    what it held before the build), and each engine's replicated state equal on
+    every rank at the end.  Its line repeats *parity*'s (``tp_parity``'s)
+    SmolLM2-1.7B prefill logits and all_reduce time on the transport."""
+    from s2s_tpu_torch import builder, cli
+    from s2s_tpu_torch.ops import decode_attention as da
+    from s2s_tpu_torch.ops import int8_matmul as mm
+    from s2s_tpu_torch.parallel.mesh import TPLayout, rank_report
+    from s2s_tpu_torch.registry import GLOBAL_MODEL_CACHE
+
+    refused = None
+    if torch.cuda.device_count() < TP_RANKS:
+        try:
+            cli.run_serve(["--device", "cuda", *TP_SERVE_FLAGS])
+        except RuntimeError as e:
+            refused = str(e)
+        check(refused is not None and f"needs {TP_RANKS} devices; {torch.cuda.device_count()} visible" in refused,
+              f"serve --model_parallel {TP_RANKS} on {torch.cuda.device_count()} card(s): {refused}")
+
+    rehearsal = parity[TP_REHEARSAL[1]]
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)  # what earlier phases left: the leader's serve is read above it
+    mm.int8_matmul.launches = da.concat_attention.launches = 0  # from the build: the follower counts from its start
+    stop = threading.Event()
+    t0 = time.perf_counter()
+    manager, server, _ = cli.build_from_argv(["--device", "cuda", *TP_SERVE_FLAGS], stop,
+                                             tp_layout=TPLayout(*TP_REHEARSAL))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    handler = builder.tp_handler_of(manager)
+    check(handler is not None, "the serve holds a tensor-parallel runtime")
+    runtime = handler.runtime
+    manager.start()
+    try:
+        check(server.started.wait(60), "server started")
+        url = f"ws://127.0.0.1:{server.bound_port}/v1/realtime"
+        t0 = time.perf_counter()
+        rounds = asyncio.run(_concurrent_text_turns(url, SESSIONS))
+        round_s = time.perf_counter() - t0
+        audio = asyncio.run(_session(url, _audio_turn(), _transcribed_and_settled, 600))
+    finally:
+        stop.set()
+        manager.stop()
+        handler.close()
+        leader = rank_report(dev)
+        consistent = runtime.consistent()
+        GLOBAL_MODEL_CACHE.clear()
+
+    sessions = []
+    for i, events in enumerate(rounds):
+        pcm, done = _reply(events, f"tp_serve text turn {i}")
+        sessions.append({"ttfa_s": _first_audio_s(events), "turn_s": done, "audio_seconds": pcm.size / 24_000})
+    voice = _voice_summary(audio)
+    followers = [runtime.follower_reports.get(rank) for rank in range(1, runtime.size)]
+    check(all(r is not None for r in followers), "every follower reported its launches and memory")
+    ranks = [leader, *followers]
+    for name in ("int8_matmul", "decode_attention"):
+        counts = [r["launches"][name] for r in ranks]
+        check(all(c > 0 for c in counts) and len(set(counts)) == 1, f"tp_serve {name} launches by rank {counts}")
+    check(all(consistent.values()) and set(consistent) == {"lm", "tts"},
+          f"tp_serve: the followers' replicated state equals the leader's: {consistent}")
+    shared = len(set(runtime.layout.devices)) < runtime.size
+    result = {"card": card,
+              "rehearsal": "ranks share a card: not tensor parallelism's speed on several" if shared else None,
+              "transport": runtime.layout.transport, "devices": list(runtime.layout.devices),
+              "flags": TP_SERVE_FLAGS[len(BATCHED_FLAGS):], "refused_on_one_card": refused,
+              "prefill_logits": rehearsal["prefill_logits"], "all_reduce_us": rehearsal["all_reduce_us"],
+              "block": list(TP_BLOCK),
+              "build_s": build_s, "round_s": round_s, "text_turns": sessions, "voice_turn": voice,
+              "launches_by_rank": [r["launches"] for r in ranks],
+              "allocated_bytes_by_rank": [r.get("allocated_bytes") for r in ranks],
+              "leader_allocated_before_bytes": before,
+              "serve_allocated_bytes_by_rank": [leader["allocated_bytes"] - before,
+                                                *(r.get("allocated_bytes") for r in followers)],
+              "max_allocated_bytes_by_rank": [r.get("max_allocated_bytes") for r in ranks],
+              "replicated_state_equal": consistent}
+    phase("tp_serve", **result)
+    return {name: [r["launches"][name] for r in ranks] for name in ("int8_matmul", "decode_attention")}
 
 
 def traced_round(url: str) -> dict:
@@ -3241,6 +3585,35 @@ def served_tts_model(tts: str, dev: torch.device):
     return ("chattts", None, str(dev)), lambda: chattts.ChatTTSModel(cfg=cfg, device=dev)
 
 
+@contextlib.contextmanager
+def served_depth(lm_layers: int | None, talker_layers: int | None, cp_layers: int | None):
+    """SmolLM2-1.7B built with *lm_layers* layers and Qwen3-TTS 1.7B's
+    talker and code predictor with *talker_layers* and *cp_layers* (None:
+    whole) by the serves built in the block: ``--llm_model_size
+    smollm2-1.7b``'s ``lm_config`` and ``--tts_model_size 1.7b``'s
+    configuration, cut in depth, widths kept."""
+    from s2s_tpu_torch.llm import local_backend
+    from s2s_tpu_torch.models import qwen3_tts
+
+    real_lm, real_tts = local_backend.lm_config, qwen3_tts.CONFIGS["1.7b"]
+
+    def lm_config(model_size: str):
+        cfg = real_lm(model_size)
+        return dataclasses.replace(cfg, n_layers=lm_layers) if lm_layers and model_size == "smollm2-1.7b" else cfg
+
+    def tts_config():
+        cfg = real_tts()
+        if talker_layers:
+            cfg = dataclasses.replace(cfg, lm=dataclasses.replace(cfg.lm, n_layers=talker_layers))
+        return dataclasses.replace(cfg, cp=dataclasses.replace(cfg.cp, n_layers=cp_layers)) if cp_layers else cfg
+
+    local_backend.lm_config, qwen3_tts.CONFIGS["1.7b"] = lm_config, tts_config
+    try:
+        yield
+    finally:
+        local_backend.lm_config, qwen3_tts.CONFIGS["1.7b"] = real_lm, real_tts
+
+
 def audible_pocket(model):
     """*model* with its Mimi output conv scaled by ``POCKET_MIMI_OUT_SCALE``
     (random full-width Mimi output sits under the handler's silence
@@ -3912,11 +4285,13 @@ def main() -> int:
     seconds: dict[str, float] = {}
 
     def run(name: str, fn, *args, tf32: bool = True):
-        """Run one phase (with TF32 off unless *tf32*), keeping its seconds;
-        after a serve, what stays allocated on the card (before and after a
-        garbage collection)."""
+        """Run one phase (with TF32 off unless *tf32*; a serve of
+        ``SERVE_DEPTHS`` at its depths), keeping its seconds; after a serve,
+        what stays allocated on the card (before and after a garbage
+        collection)."""
         t0 = time.perf_counter()
-        with contextlib.nullcontext() if tf32 else tf32_mode(False):
+        depth = served_depth(*SERVE_DEPTHS[name]) if name in SERVE_DEPTHS else contextlib.nullcontext()
+        with contextlib.nullcontext() if tf32 else tf32_mode(False), depth:
             result = fn(*args)
         seconds[name] = time.perf_counter() - t0
         if name.endswith("serve"):
@@ -3934,6 +4309,7 @@ def main() -> int:
     attn = run("decode_attention", attention_phase, dev, tf32=False)
     run("tiny_parity", tiny_parity_phase, dev, tf32=False)
     run("tiny_batched_parity", tiny_batched_parity_phase, dev, tf32=False)
+    tp_parity = run("tp_parity", tp_parity_phase, dev, tf32=False)
     run("tiny_kokoro_parity", tiny_kokoro_parity_phase, dev, tf32=False)
     run("tiny_vits_parity", tiny_vits_parity_phase, dev, tf32=False)
     run("tiny_pocket_parity", tiny_pocket_parity_phase, dev, tf32=False)
@@ -3950,6 +4326,7 @@ def main() -> int:
     tts = {name: run(TTS_SERVES[name][0], tts_serve_phase, dev, smi, name) for name in TTS_SERVES}
     single = run("serve", serve_phase, dev)
     launches = run("batched_serve", batched_serve_phase, dev, smi)
+    tp_launches = run("tp_serve", tp_serve_phase, dev, smi, tp_parity)
     dyn = run("int8_matmul_dyn", int8_dyn_phase, dev, str(library), tf32=False)
     int4 = run("int4_matmul", weight_only_phase, dev, "int4", tf32=False)
     micro = run("w8a8_microbench", w8a8_microbench_phase, dev, dyn["rows"], tf32=False)
@@ -3979,6 +4356,8 @@ def main() -> int:
                       "paraformer_vlm_serve": vlm["flash_attention"]}
     tts_serves = {name: {f"{TTS_SERVES[t][0]}_launches": tts[t][name] for t in TTS_SERVES}
                   for name in ("int8_matmul", "decode_attention")}
+    for name in tts_serves:  # the tensor-parallel serve's, leader then follower
+        tts_serves[name]["tp_serve_launches_by_rank"] = tp_launches[name]
     print(smi[0])
     print(json.dumps({"kernels": [
         {"name": "int8_matmul", "route": "cuda", "source": "s2s_tpu_torch/csrc/int8_matmul.cu",

@@ -8,14 +8,30 @@ behind one server; the registry shares one weight set and one batched engine
 per model among them, and with Silero one batched VAD serves every unit's
 ticks.  ``--profile_dir`` adds a ``torch.profiler`` trace for the life of
 the serve; ``--vad_enhancer_checkpoint`` adds DeepFilter on every unit's
-VAD-final audio.  ``--model_parallel`` above 1 (not ported) raises at build
-time and names its ROADMAP item.
+VAD-final audio.
+
+``--model_parallel N`` above 1 splits the batched LM and the batched
+Qwen3-TTS talker over N ranks (tensor parallelism; ``registry.tp_engines``).
+This process is rank 0, the leader, and runs the whole pipeline;
+:func:`launch_tp` starts ranks 1..N-1 as follower processes
+(``python -m s2s_tpu_torch.cli tp-follower``, ``cli.run_follower``), which
+build only their shards of the two engines and replay the leader's programs.
+By default rank r runs on ``cuda:r`` over NCCL, and the build raises when
+fewer than N cards are visible; a ``tp_layout`` (``parallel.mesh.TPLayout``)
+names each rank's device and the transport instead, e.g. two ranks on
+``cuda:0`` over gloo to rehearse on one card, or two on the CPU in tests.
+The serve's stop closes the runtime: the engines, the followers, the groups.
 """
 
 from __future__ import annotations
 
 import logging
+import os
+import pickle
+import subprocess
+import sys
 import threading
+from datetime import timedelta
 from queue import Queue
 from typing import Any
 
@@ -40,13 +56,38 @@ logger = logging.getLogger(__name__)
 
 
 def check_supported(args: ParsedArguments) -> None:
-    """Raise for every option whose device code is not ported yet."""
-    if args.module.model_parallel > 1:
-        raise NotImplementedError("--model_parallel: tensor-parallel serving is ROADMAP queue 1 item 8")
+    """Raise for what tensor-parallel serving does not take, before any rank
+    starts: ``int8-dyn`` on a split tree (the W8A8 kernel quantizes each row
+    by its absmax over the rank's own input dim, where one device's spans
+    the whole of it: matching it needs that absmax reduced across ranks
+    inside the kernel, ROADMAP), sampled decode (temperature above 0 runs
+    the single-session LM, whose whole tree no rank keeps), and heads that
+    the ranks do not divide."""
+    n = args.module.model_parallel
+    if n <= 1:
+        return
+    from s2s_tpu_torch.llm.local_backend import lm_config
+    from s2s_tpu_torch.models.qwen3_tts import CONFIGS
+    from s2s_tpu_torch.registry import check_tp_heads, tp_engines
+
+    engines = tp_engines(args)
+    for name, flag, config in (("lm", "--llm_quantize", args.llm_config), ("tts", "--tts_quantize", args.tts_config)):
+        if name in engines and config.quantize == "int8-dyn":
+            raise ValueError(f"{flag} int8-dyn with --model_parallel {n}: the W8A8 kernel takes each row's absmax "
+                             "over its own rank's input dim; a sharded tree needs that absmax reduced across "
+                             "ranks first (a kernel change, ROADMAP)")
+    if "lm" in engines and float(args.llm_config.gen_kwargs.get("temperature", 0.0)) > 0:
+        raise ValueError(f"--model_parallel {n}: sampled decode (temperature > 0) runs the single-session LM, "
+                         "which is not split over the ranks; use greedy decode")
+    if "lm" in engines:
+        check_tp_heads(lm_config(args.llm_config.model_size), n, f"--llm_model_size {args.llm_config.model_size}")
+    if "tts" in engines:
+        check_tp_heads(CONFIGS[args.tts_config.model_size]().lm, n,
+                       f"the Qwen3-TTS talker (--tts_model_size {args.tts_config.model_size})")
 
 
 def build_pipeline_unit(index: int, args: ParsedArguments, stop_event: threading.Event,
-                        device: torch.device, vad_model=None) -> PipelineUnit:
+                        device: torch.device, vad_model=None, tp=None) -> PipelineUnit:
     """One unit: queues, control plane, service, handler chain.  Without a
     *vad_model*, the energy backend gets its own ``EnergyVAD`` (host
     arithmetic with per-session state) and Silero is built by the VAD
@@ -72,7 +113,7 @@ def build_pipeline_unit(index: int, args: ParsedArguments, stop_event: threading
             cancel_scope=cancel_scope, speculative_turns=tracker,
             device_scheduler=GLOBAL_SCHEDULER, model_cache=GLOBAL_MODEL_CACHE,
             n_units=args.module.num_pipelines, model_parallel=args.module.model_parallel,
-            device=device,
+            device=device, tp=tp,
         )
 
     if vad_model is None and args.vad.backend == "energy":
@@ -158,37 +199,111 @@ def warmup_engines() -> None:
 
 
 def build_pipeline(args: ParsedArguments, stop_event: threading.Event,
-                   device: torch.device) -> tuple[ThreadManager, RealtimeServer]:
-    """Check the options, build the units (models load on *device* here),
-    warm the batched engines if asked, and build the realtime server;
-    returns (thread manager, server), not started."""
+                   device: torch.device, tp_layout=None) -> tuple[ThreadManager, RealtimeServer]:
+    """Check the options, start the tensor-parallel ranks (``--model_parallel``
+    above 1, on *tp_layout*: see :func:`launch_tp`), build the units (models
+    load on *device* here), warm the batched engines if asked, and build the
+    realtime server; returns (thread manager, server), not started."""
     check_supported(args)
     install_pipeline_log_filter()
-    n = args.module.num_pipelines
-    vad_models = [None] * n
-    if n > 1 and args.vad.backend == "silero":
-        # N sessions, ONE Silero: every unit's 32 ms ticks batch into one call on the device
-        from s2s_tpu_torch.runtime.batcher import BatchedSileroVAD
+    tp = launch_tp(args, device, tp_layout) if args.module.model_parallel > 1 else None
+    try:
+        n = args.module.num_pipelines
+        vad_models = [None] * n
+        if n > 1 and args.vad.backend == "silero":
+            # N sessions, ONE Silero: every unit's 32 ms ticks batch into one call on the device
+            from s2s_tpu_torch.runtime.batcher import BatchedSileroVAD
 
-        service = GLOBAL_MODEL_CACHE.get(("silero_batched", n, str(device)),
-                                         lambda: BatchedSileroVAD(max_slots=n, device=device))
-        vad_models = [service.view(i) for i in range(n)]
-    pool = [build_pipeline_unit(i, args, stop_event, device, vad_model=vad_models[i]) for i in range(n)]
-    ice = args.server.webrtc_ice_servers
-    server = RealtimeServer(
-        stop_event, pool, host=args.server.host, port=args.server.port,
-        llm_proxy=_build_llm_proxy(args),
-        webrtc_port=args.server.webrtc_port,
-        webrtc_ice_servers=[u.strip() for u in ice.split(",")] if ice else None,
-    )
-    handlers: list[Any] = [h for unit in pool for h in unit.handlers]
-    if args.module.profile_dir:
-        from s2s_tpu_torch.runtime.profiler import ProfilerHandler
+            service = GLOBAL_MODEL_CACHE.get(("silero_batched", n, str(device)),
+                                             lambda: BatchedSileroVAD(max_slots=n, device=device))
+            vad_models = [service.view(i) for i in range(n)]
+        pool = [build_pipeline_unit(i, args, stop_event, device, vad_model=vad_models[i], tp=tp) for i in range(n)]
+        ice = args.server.webrtc_ice_servers
+        server = RealtimeServer(
+            stop_event, pool, host=args.server.host, port=args.server.port,
+            llm_proxy=_build_llm_proxy(args),
+            webrtc_port=args.server.webrtc_port,
+            webrtc_ice_servers=[u.strip() for u in ice.split(",")] if ice else None,
+        )
+        handlers: list[Any] = [h for unit in pool for h in unit.handlers]
+        if args.module.profile_dir:
+            from s2s_tpu_torch.runtime.profiler import ProfilerHandler
 
-        handlers.append(ProfilerHandler(stop_event, args.module.profile_dir, device))
-    if args.module.warmup_engines:
-        warmup_engines()
+            handlers.append(ProfilerHandler(stop_event, args.module.profile_dir, device))
+        if tp is not None:
+            handlers.append(TPServeHandler(stop_event, tp))
+        if args.module.warmup_engines:
+            warmup_engines()
+    except BaseException:
+        if tp is not None:
+            tp.close(abort=True)
+        raise
     return ThreadManager([*handlers, server]), server
+
+
+# ── tensor-parallel serving: the leader's launcher and the follower ──
+
+
+class TPServeHandler:
+    """ThreadManager 'handler' holding the tensor-parallel runtime for the
+    life of the serve; when the serve stops it closes the runtime (the
+    engines' drivers, the followers, the groups) and sets ``closed``."""
+
+    def __init__(self, stop_event: threading.Event, runtime) -> None:
+        self.stop_event = stop_event
+        self.runtime = runtime
+        self.closed = threading.Event()
+
+    def run(self) -> None:
+        self.stop_event.wait()
+        self.close()
+
+    def close(self) -> None:
+        try:
+            self.runtime.close()
+        finally:
+            self.closed.set()
+
+
+def tp_handler_of(manager: ThreadManager):
+    """The :class:`TPServeHandler` of a built pipeline (its ``runtime``,
+    ``close()`` and ``closed``), or None."""
+    return next((h for h in manager.handlers if isinstance(h, TPServeHandler)), None)
+
+
+def launch_tp(args: ParsedArguments, device: torch.device, layout=None):
+    """Start the ranks of ``--model_parallel N``: this process is rank 0;
+    ranks 1..N-1 are follower processes (``cli.run_follower``) that read the
+    parsed arguments and the layout from a ``TCPStore`` on 127.0.0.1.
+    *layout* (a ``parallel.mesh.TPLayout``; default ``mesh.tp_layout``, one
+    card a rank over NCCL, which raises when fewer than N are visible) puts
+    rank 0 on *device*.  Returns rank 0's ``mesh.TPRuntime``, which holds the
+    followers' processes and joins the groups when the first engine asks
+    for one."""
+    from s2s_tpu_torch.parallel.mesh import TP_TIMEOUT_S, TPRuntime, tp_layout
+
+    import torch.distributed as dist
+
+    n = args.module.model_parallel
+    layout = layout or tp_layout(n, device)
+    if layout.size != n or torch.device(layout.devices[0]) != device:
+        raise ValueError(f"--model_parallel {n} on --device {device}: layout {layout} does not match")
+    if device.type == "cuda":
+        from s2s_tpu_torch.ops import _build
+
+        _build.build()  # once, before the followers would each compile the kernels
+    store = dist.TCPStore("127.0.0.1", 0, n, True, timeout=timedelta(seconds=TP_TIMEOUT_S), wait_for_workers=False)
+    store.set("tp/args", pickle.dumps((args, layout, TP_TIMEOUT_S)))
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    logger.info("--model_parallel %d: starting %d followers on %s over %s", n, n - 1, layout.devices[1:],
+                layout.transport)
+    procs = [subprocess.Popen([sys.executable, "-m", "s2s_tpu_torch.cli", "tp-follower", "--rank", str(rank),
+                               "--store", f"127.0.0.1:{store.port}"], env=env)
+             for rank in range(1, n)]
+    runtime = TPRuntime(0, layout, store, TP_TIMEOUT_S, connect=False)  # joined when the first engine asks
+    runtime.procs = procs
+    return runtime
 
 
 def _build_enhancer(args: ParsedArguments, device: torch.device):

@@ -5,7 +5,9 @@
 - ``talk`` connects the audio client to a running server (live with
   ``sounddevice``, else headless with ``--input_wav``/``--output_wav``);
 - ``local`` runs the server and a loopback client in one process: server
-  flags, then ``--``, then client flags.
+  flags, then ``--``, then client flags;
+- ``tp-follower`` is one follower rank of a ``--model_parallel`` serve,
+  started by the serve itself (``builder.launch_tp``).
 
 The flags are the JAX package's (``s2s_tpu_torch.arguments`` is its copy of
 ``s2s_tpu/arguments.py``), so ``scripts/run_soak.py``'s command lines work
@@ -25,7 +27,7 @@ import torch
 
 logger = logging.getLogger(__name__)
 
-COMMANDS = ("serve", "talk", "local")
+COMMANDS = ("serve", "talk", "local", "tp-follower")
 
 
 def split_device(argv: list[str]) -> tuple[str, list[str]]:
@@ -67,13 +69,15 @@ def parse_with_device(argv: list[str]):
     return resolve_device(device_name), parse_arguments(rest)
 
 
-def build_from_argv(argv: list[str], stop_event: threading.Event):
+def build_from_argv(argv: list[str], stop_event: threading.Event, tp_layout=None):
     """Parse *argv* (``--device`` included) and build the pipeline:
-    returns (thread manager, server, parsed args), not started."""
+    returns (thread manager, server, parsed args), not started.
+    *tp_layout* places the ranks of ``--model_parallel`` (see
+    ``builder.launch_tp``)."""
     from s2s_tpu_torch.builder import build_pipeline
 
     device, args = parse_with_device(argv)
-    manager, server = build_pipeline(args, stop_event, device)
+    manager, server = build_pipeline(args, stop_event, device, tp_layout)
     return manager, server, args
 
 
@@ -138,6 +142,59 @@ def run_local(argv: list[str]) -> None:
         manager.stop()
 
 
+def run_follower(argv: list[str]) -> int:
+    """A follower rank (``s2s-tpu-torch tp-follower --rank R --store
+    HOST:PORT``, started by ``builder.launch_tp``): joins the groups, builds its
+    shards of the tensor-parallel engines (``registry.build_tp_engines``),
+    replays the leader's programs until its stop, then leaves each engine's
+    ``state_summary`` in the store.  Exits non-zero if any of that fails,
+    among others when the leader is gone or a collective times out."""
+    import argparse
+    import json
+    import pickle
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from s2s_tpu_torch.parallel.mesh import TPRuntime, rank_report
+    from s2s_tpu_torch.registry import build_tp_engines
+
+    parser = argparse.ArgumentParser(prog="s2s-tpu-torch tp-follower")
+    parser.add_argument("--rank", type=int, required=True)
+    parser.add_argument("--store", required=True, help="HOST:PORT of the leader's TCPStore")
+    ns = parser.parse_args(argv)
+    host, port = ns.store.rsplit(":", 1)
+    store = dist.TCPStore(host, int(port), is_master=False, timeout=timedelta(seconds=120))
+    args, layout, timeout_s = pickle.loads(store.get("tp/args"))
+    logging.basicConfig(level=getattr(logging, args.module.log_level.upper(), logging.INFO),
+                        format=f"%(asctime)s %(levelname)s tp-rank-{ns.rank} %(name)s: %(message)s")
+    runtime = TPRuntime(ns.rank, layout, store, timeout_s)
+    failed: list[BaseException] = []
+
+    def follow(engine) -> None:
+        try:
+            engine.follow()
+        except BaseException as e:  # noqa: BLE001 - reported by the exit code
+            logger.exception("TP follower loop failed")
+            failed.append(e)
+
+    try:
+        engines = build_tp_engines(args, runtime)
+        threads = [threading.Thread(target=follow, args=(engine,), name=f"tp-follow-{name}")
+                   for name, engine in engines.items()]
+        for thread in threads:
+            thread.start()
+        for thread in threads:
+            thread.join()
+        if not failed:
+            for name, engine in engines.items():
+                store.set(runtime.summary_key(name, ns.rank), json.dumps(engine.state_summary()))
+            store.set(runtime.report_key(ns.rank), json.dumps(rank_report(runtime.device)))
+    finally:
+        runtime.shutdown()
+    return 1 if failed else 0
+
+
 def main() -> None:
     argv = sys.argv[1:]
     if not argv or argv[0] in ("-h", "--help"):
@@ -145,11 +202,14 @@ def main() -> None:
         print("  serve  run the realtime voice-agent server on the PyTorch/CUDA port")
         print("  talk   connect an audio client to a running server")
         print("  local  server + loopback client in one process (server flags -- client flags)")
+        print("  tp-follower  one follower rank of a --model_parallel serve (the serve starts them)")
         return
     command, rest = argv[0], argv[1:]
     if command not in COMMANDS:
         # bare options default to serve
         command, rest = "serve", argv
+    if command == "tp-follower":
+        sys.exit(run_follower(rest))
     {"serve": run_serve, "talk": run_talk, "local": run_local}[command](rest)
 
 

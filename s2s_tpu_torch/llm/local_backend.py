@@ -222,6 +222,11 @@ class LocalTorchLLMHandler(BaseLLMHandler):
 
     def _build_generator(self, model_size, params, tokenizer):
         cfg = lm_config(model_size)
+        if params is None and getattr(self.shared_lm, "tp", None) is not None:
+            # tensor-parallel engine: every rank holds its shard only, and
+            # the sampled single-session path is refused at build
+            self.cfg, self.params, self.tokenizer = cfg, None, tokenizer or SimpleCharTokenizer()
+            return
         if params is None:
             logger.warning("LocalTorchLLMHandler: random-init weights (no checkpoint provided)")
             gen = torch.Generator(device=self.device).manual_seed(0)

@@ -19,6 +19,15 @@ parameters may be plain tensors or DTensors placed on a ``("data",
 (:mod:`s2s_tpu_torch.parallel.mesh`); the constants the forward makes are
 then lifted onto the parameters' mesh.  :func:`convert_hf_state_dict` maps a
 Hugging Face Llama/SmolLM2 checkpoint onto the parameter tree.
+
+Tensor-parallel serving runs the same blocks on one rank's shard of the
+tree (``mesh.local_shard`` of :func:`param_shardings`, plain tensors) with
+a ``tp`` group (``mesh.TPGroup``): head counts come from the shard's
+widths, the row-parallel ``wo`` and ``w_down`` outputs are summed across
+ranks, a vocabulary-split embedding is looked up rank by rank and summed,
+and vocabulary-split logits are gathered before anyone takes an argmax.
+Each of these engages only where the weight at hand is split, so with
+``tp=None``, or a group of one rank, nothing changes.
 """
 
 from __future__ import annotations
@@ -48,7 +57,7 @@ from s2s_tpu_torch.models.common import (
     swiglu,
     unstack_layers,
 )
-from s2s_tpu_torch.ops.quant import QUANT_TYPES
+from s2s_tpu_torch.ops.quant import QUANT_TYPES, Quant4Weight
 
 
 @dataclass(frozen=True)
@@ -162,6 +171,11 @@ def param_shardings(cfg: DecoderLMConfig) -> Params:
     return specs
 
 
+def local_kv_heads(cfg: DecoderLMConfig, tp=None) -> int:
+    """The kv heads one rank holds (all of them without tensor parallelism)."""
+    return cfg.n_kv_heads // (tp.size if tp is not None else 1)
+
+
 class DecodeState(NamedTuple):
     """Decode carry: stacked per-layer caches (L, B, n_kv, max_t, head_dim),
     written in place, and the next write position (host int)."""
@@ -171,26 +185,62 @@ class DecodeState(NamedTuple):
 
 
 def init_decode_state(cfg: DecoderLMConfig, batch: int, max_t: int | None = None,
-                      device: torch.device | str = "cpu") -> DecodeState:
+                      device: torch.device | str = "cpu", tp=None) -> DecodeState:
+    """Zero caches; under tensor parallelism, for this rank's kv heads."""
     max_t = max_t or cfg.max_seq_len
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_t, cfg.head_dim)
+    shape = (cfg.n_layers, batch, local_kv_heads(cfg, tp), max_t, cfg.head_dim)
     caches = KVCache(torch.zeros(shape, dtype=cfg.dtype, device=device),
                      torch.zeros(shape, dtype=cfg.dtype, device=device))
     return DecodeState(caches, 0)
 
 
-def _block(x, lp: Params, cfg: DecoderLMConfig, cache: KVCache | None, pos, cos, sin, mask):
-    """One transformer block over UNSTACKED layer params; returns (x, cache)."""
+def out_width(w) -> int:
+    """Output columns of a weight (a tensor or a quantized leaf; stacked or not)."""
+    return w.scale.shape[-1] if isinstance(w, QUANT_TYPES) else w.shape[-1]
+
+
+def in_width(w) -> int:
+    """Input rows of a weight (a packed int4 payload holds two a byte)."""
+    if isinstance(w, QUANT_TYPES):
+        return w[0].shape[-2] * (2 if isinstance(w, Quant4Weight) else 1)
+    return w.shape[-2]
+
+
+def row_parallel(y, w, full_in: int, tp):
+    """*y* = x @ *w*, summed across the ranks of *tp* when *w* holds only a
+    block of its *full_in* input rows (a row-parallel shard)."""
+    return y if tp is None or in_width(w) == full_in else tp.all_reduce(y)
+
+
+def embed_tokens(table, tokens, cfg: DecoderLMConfig, tp=None):
+    """``table[tokens]``.  A vocabulary-split table (fewer rows than
+    ``cfg.vocab_size``, rank r holding block r) looks up the tokens in its
+    block, zeros elsewhere, and the rows are summed across ranks: exact."""
+    tokens = tokens.long()
+    rows = table.shape[0]
+    if tp is None or rows == cfg.vocab_size:
+        return table[tokens]
+    local = tokens - tp.rank * rows
+    inside = (local >= 0) & (local < rows)
+    found = table[local.clamp(0, rows - 1)]
+    return tp.all_reduce(torch.where(inside[..., None], found, torch.zeros_like(found)))
+
+
+def _block(x, lp: Params, cfg: DecoderLMConfig, cache: KVCache | None, pos, cos, sin, mask, tp=None):
+    """One transformer block over UNSTACKED layer params; returns (x, cache).
+    Head counts are the weights' (a rank's heads under tensor parallelism)."""
     b, t, _ = x.shape
+    hd = cfg.head_dim
+    n_q, n_kv = out_width(lp["wq"]) // hd, out_width(lp["wk"]) // hd
     h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
-    q = _split_heads(linear(h, lp["wq"]), cfg.n_heads, cfg.head_dim)
-    k = _split_heads(linear(h, lp["wk"]), cfg.n_kv_heads, cfg.head_dim)
+    q = _split_heads(linear(h, lp["wq"]), n_q, hd)
+    k = _split_heads(linear(h, lp["wk"]), n_kv, hd)
     if cfg.qk_norm:
         q = rms_norm(q, lp["q_norm"], cfg.rms_eps)
         k = rms_norm(k, lp["k_norm"], cfg.rms_eps)
     q = q.transpose(1, 2)
     k = k.transpose(1, 2)
-    v = _split_heads(linear(h, lp["wv"]), cfg.n_kv_heads, cfg.head_dim).transpose(1, 2)
+    v = _split_heads(linear(h, lp["wv"]), n_kv, hd).transpose(1, 2)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     if cache is not None:
@@ -199,10 +249,10 @@ def _block(x, lp: Params, cfg: DecoderLMConfig, cache: KVCache | None, pos, cos,
     else:
         k_all, v_all = k, v
     attn = _attention(q, k_all, v_all, mask)
-    attn = attn.transpose(1, 2).reshape(b, t, cfg.n_heads * cfg.head_dim)
-    x = x + linear(attn, lp["wo"])
+    attn = attn.transpose(1, 2).reshape(b, t, n_q * hd)
+    x = x + row_parallel(linear(attn, lp["wo"]), lp["wo"], cfg.n_heads * hd, tp)
     h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
-    return x + swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"]), cache
+    return x + row_parallel(swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"]), lp["w_down"], cfg.d_ff, tp), cache
 
 
 def _dtensor(t):
@@ -273,20 +323,26 @@ def _embed(table, tokens):
     return _placed(dtensor, whole[tokens.to_local()], mesh, tokens.placements, (*tokens.shape, table.shape[1]))
 
 
-def _run_blocks(x, params: Params, cfg: DecoderLMConfig, caches: KVCache | None, pos, cos, sin, mask):
+def _run_blocks(x, params: Params, cfg: DecoderLMConfig, caches: KVCache | None, pos, cos, sin, mask, tp=None):
     """The layer loop (the JAX package's ``_scan_blocks``)."""
     for i, lp in enumerate(unstack_layers(params["layers"])):
         cache = KVCache(caches.k[i], caches.v[i]) if caches is not None else None
-        x, _ = _block(x, lp, cfg, cache, pos, cos, sin, mask)
+        x, _ = _block(x, lp, cfg, cache, pos, cos, sin, mask, tp)
     return x, caches
 
 
-def _logits(x, params: Params, cfg: DecoderLMConfig) -> torch.Tensor:
+def _logits(x, params: Params, cfg: DecoderLMConfig, tp=None) -> torch.Tensor:
+    """f32 logits (..., V); a vocabulary-split head's are gathered across
+    the ranks of *tp* (exact)."""
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     if isinstance(head, QUANT_TYPES):
-        return linear(x, head).float()
-    return torch.matmul(x, head.to(x.dtype)).float()
+        logits = linear(x, head).float()
+    else:
+        logits = torch.matmul(x, head.to(x.dtype)).float()
+    if tp is not None and logits.shape[-1] != cfg.vocab_size:
+        logits = tp.gather_last(logits, cfg.vocab_size)
+    return logits
 
 
 def _rope(cfg: DecoderLMConfig, device):
@@ -333,14 +389,14 @@ def forward_embeds(params: Params, cfg: DecoderLMConfig, embeds) -> torch.Tensor
     return _logits(_hidden_full(params, cfg, embeds.to(cfg.dtype)), params, cfg)
 
 
-def _hidden_prefill(params: Params, cfg: DecoderLMConfig, x, state: DecodeState, prompt_len):
+def _hidden_prefill(params: Params, cfg: DecoderLMConfig, x, state: DecodeState, prompt_len, tp=None):
     """x: (B, T, D) right-padded prompt embeddings; prompt_len: int or (B,)
     tensor of valid lengths.  Returns (last valid hidden (B, D), state)."""
     b, t, _ = x.shape
     cos_full, sin_full = _rope(cfg, x.device)
     max_t = state.caches.k.shape[3]
     mask = causal_mask(t, max_t, 0, x.device) & length_mask(max_t, t, x.device)
-    x, caches = _run_blocks(x, params, cfg, state.caches, 0, cos_full[:t], sin_full[:t], mask)
+    x, caches = _run_blocks(x, params, cfg, state.caches, 0, cos_full[:t], sin_full[:t], mask, tp)
     if isinstance(prompt_len, int):
         return x[:, prompt_len - 1], DecodeState(caches, prompt_len)
     # per-row lengths on the device: one host read for the next position
@@ -364,14 +420,14 @@ def prefill_embeds(params: Params, cfg: DecoderLMConfig, embeds, state: DecodeSt
     return rms_norm(last, params["final_norm"], cfg.rms_eps), state
 
 
-def _hidden_step(params: Params, cfg: DecoderLMConfig, x, state: DecodeState):
+def _hidden_step(params: Params, cfg: DecoderLMConfig, x, state: DecodeState, tp=None):
     """x: (B, 1, D) one step of embeddings at ``state.pos``."""
     cos_full, sin_full = _rope(cfg, x.device)
     pos = state.pos
     max_t = state.caches.k.shape[3]
     mask = length_mask(max_t, pos + 1, x.device)
     x, caches = _run_blocks(x, params, cfg, state.caches, pos,
-                            cos_full[pos : pos + 1], sin_full[pos : pos + 1], mask)
+                            cos_full[pos : pos + 1], sin_full[pos : pos + 1], mask, tp)
     return x, DecodeState(caches, pos + 1)
 
 

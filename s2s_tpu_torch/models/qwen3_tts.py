@@ -13,9 +13,15 @@ The cross-session batched talker programs that the serving scheduler
 dispatches are the tail programs (``*_tail`` below), which update the batched
 state in place (:mod:`s2s_tpu_torch.parallel.batched_decode`).  The
 checkpoint converters (:func:`convert_state_dict`, :func:`convert_c2w_state_dict`)
-give the JAX package's trees.  Not ported yet (ROADMAP): the legacy batched
-programs, the one-shot ``synthesize`` program, voice cloning from reference
-audio.
+give the JAX package's trees; :func:`speaker_from_reference` clones a voice
+from reference audio.  Not ported yet (ROADMAP): the legacy batched
+programs, the one-shot ``synthesize`` program.
+
+Under tensor parallelism (``--model_parallel``) the talker programs take a
+``tp`` group and ``params["talker"]`` is one rank's shard; its codec
+embedding stays whole (read outside the blocks, and 4,206 rows divide by
+neither 4 nor 8), and the code predictor, heads and Code2Wav stay
+replicated, so every rank computes the same codes, embeddings and audio.
 """
 
 from __future__ import annotations
@@ -144,6 +150,10 @@ class Qwen3TTSConfig:
             ),
             dtype=torch.float32,
         )
+
+
+#: ``--tts_model_size`` -> its configuration (the handler's ``config_for``)
+CONFIGS = {"1.7b": Qwen3TTSConfig.qwen3_tts_12hz_1_7b, "tiny": Qwen3TTSConfig.tiny}
 
 
 # ---------------------------------------------------------------------------
@@ -391,11 +401,11 @@ def _cp_expand_frame(params: Params, cfg: Qwen3TTSConfig, talker_hidden, code0):
     return codes, emb_sum.to(cfg.dtype)
 
 
-def _frame_step(params: Params, cfg: Qwen3TTSConfig, state: TalkerState):
+def _frame_step(params: Params, cfg: Qwen3TTSConfig, state: TalkerState, tp=None):
     """One codec frame: talker step -> code0 -> code-predictor expansion.
     Returns (codes (B, n_q), eos (B,), new state)."""
     x, lm_state = decoder_lm._hidden_step(params["talker"], cfg.lm, state.next_embed[:, None, :],
-                                          state.lm_state)
+                                          state.lm_state, tp)
     hidden = x[:, 0]
     normed = rms_norm(hidden, params["talker"]["final_norm"], cfg.lm.rms_eps)
     logits = normed.float() @ f32_weight(params, "codec_head")
@@ -407,20 +417,21 @@ def _frame_step(params: Params, cfg: Qwen3TTSConfig, state: TalkerState):
     return codes, eos, TalkerState(lm_state, next_embed)
 
 
-def talker_prefill(params: Params, cfg: Qwen3TTSConfig, text_tokens, speaker_vec, state: DecodeState):
+def talker_prefill(params: Params, cfg: Qwen3TTSConfig, text_tokens, speaker_vec, state: DecodeState, tp=None):
     """Fill the talker cache with [speaker, text...]; the first frame step
     then consumes the codec BOS embedding.  Returns a TalkerState."""
     text_emb = params["text_embed"][text_tokens.long()]
     prompt = torch.cat([speaker_vec[:, None, :].to(text_emb.dtype), text_emb], dim=1)
     prompt_len = (text_tokens > 0).sum(dim=1) + 1
-    _, lm_state = decoder_lm._hidden_prefill(params["talker"], cfg.lm, prompt, state, prompt_len)
+    _, lm_state = decoder_lm._hidden_prefill(params["talker"], cfg.lm, prompt, state, prompt_len, tp)
     bos = params["talker"]["embed"][
         torch.full((text_tokens.shape[0],), cfg.codec_bos_id, dtype=torch.long, device=text_tokens.device)
     ]
     return TalkerState(lm_state, bos)
 
 
-def decode_chunk_audio(params: Params, cfg: Qwen3TTSConfig, state: TalkerState, context, n_frames: int):
+def decode_chunk_audio(params: Params, cfg: Qwen3TTSConfig, state: TalkerState, context, n_frames: int,
+                       tp=None):
     """Decode *n_frames* codec frames and vocode them with *context* (C, n_q)
     trailing frames of the previous chunk, trimmed from the returned audio.
     Everything stays on the device.
@@ -428,7 +439,7 @@ def decode_chunk_audio(params: Params, cfg: Qwen3TTSConfig, state: TalkerState, 
     Returns (audio, eos_flags (n_frames,), new state, next context)."""
     frames, flags = [], []
     for _ in range(n_frames):
-        codes, eos, state = _frame_step(params, cfg, state)
+        codes, eos, state = _frame_step(params, cfg, state, tp)
         frames.append(codes[0])
         flags.append(eos[0])
     full = torch.cat([context, torch.stack(frames)], dim=0)  # (C + n, n_q)
@@ -449,20 +460,20 @@ def prompt_embeds(params: Params, cfg: Qwen3TTSConfig, text_tokens, speaker_vec)
     return prompt, (text_tokens > 0).sum(dim=1)[0] + 1
 
 
-def prefill_tts_slot(params: Params, cfg: Qwen3TTSConfig, text_tokens, speaker_vec, state, slot: int):
+def prefill_tts_slot(params: Params, cfg: Qwen3TTSConfig, text_tokens, speaker_vec, state, slot: int, tp=None):
     """Prefill one slot of the batched talker state in place; returns (the
     codec BOS embedding (D,) for the slot's first frame, state)."""
     prompt, prompt_len = prompt_embeds(params, cfg, text_tokens, speaker_vec)
-    state = bd.prefill_slot_embeds(params["talker"], cfg.lm, prompt, prompt_len, state, slot)
+    state = bd.prefill_slot_embeds(params["talker"], cfg.lm, prompt, prompt_len, state, slot, tp)
     return params["talker"]["embed"][cfg.codec_bos_id], state
 
 
 def _frame_step_multi_tail(params: Params, cfg: Qwen3TTSConfig, embeds, kc, vc, pos0, tk, tv,
-                           n_act, active, i: int):
+                           n_act, active, i: int, tp=None):
     """One codec frame for every row against frozen caches + the tail.
     Returns (codes (B, n_q), eos (B,), next embeds (B, D), tk, tv)."""
     hidden, tk, tv = bd.tail_hidden_step(params["talker"], cfg.lm, embeds, kc, vc, pos0, tk, tv,
-                                         n_act, active, i)
+                                         n_act, active, i, tp)
     normed = rms_norm(hidden, params["talker"]["final_norm"], cfg.lm.rms_eps)
     logits = normed.float() @ f32_weight(params, "codec_head")
     code0 = torch.argmax(logits, dim=-1).to(torch.int32)
@@ -473,19 +484,19 @@ def _frame_step_multi_tail(params: Params, cfg: Qwen3TTSConfig, embeds, kc, vc, 
 
 
 def decode_chunk_audio_tail(params: Params, cfg: Qwen3TTSConfig, embeds, state, contexts,
-                            n_frames: int, active):
+                            n_frames: int, active, tp=None):
     """*n_frames* codec frames for every row plus Code2Wav, with one cache
     write per chunk.  embeds: (B, D); contexts: (B, C, n_q) trailing frames of
     each row's previous chunk; active: (B,) bool.  Returns (audio (B, T'),
     eos (n, B), next embeds, state, next contexts)."""
     b = embeds.shape[0]
     kc, vc, pos0 = state.caches.k, state.caches.v, state.pos
-    tk, tv = bd.init_tail(cfg.lm, b, n_frames, embeds.device)
+    tk, tv = bd.init_tail(cfg.lm, b, n_frames, embeds.device, kc.shape[2])
     n_act = torch.zeros((b,), dtype=torch.int32, device=embeds.device)
     frames, flags = [], []
     for i in range(n_frames):
         codes, eos, embeds, tk, tv = _frame_step_multi_tail(params, cfg, embeds, kc, vc, pos0, tk, tv,
-                                                            n_act, active, i)
+                                                            n_act, active, i, tp)
         frames.append(codes)
         flags.append(eos)
         n_act = n_act + active.to(torch.int32)
@@ -498,37 +509,37 @@ def decode_chunk_audio_tail(params: Params, cfg: Qwen3TTSConfig, embeds, state, 
 
 
 def decode_chunk_audio_slot_tail(params: Params, cfg: Qwen3TTSConfig, embed, state, context,
-                                 n_frames: int, slot: int):
+                                 n_frames: int, slot: int, tp=None):
     """Priority lane: *n_frames* frames + vocode for ONE slot at batch-1
     cost, on views of its row.  embed: (D,); context: (C, n_q).  Returns
     (audio (T',), eos (n,), next embed (D,), state, next context)."""
     active = torch.ones((1,), dtype=torch.bool, device=embed.device)
     audio, eos, emb, _, ctx = decode_chunk_audio_tail(params, cfg, embed[None], bd._slot_row(state, slot),
-                                                      context[None], n_frames, active)
+                                                      context[None], n_frames, active, tp)
     return audio[0], eos[:, 0], emb[0], state, ctx[0]
 
 
 def prefill_and_first_chunk_slot_tail(params: Params, cfg: Qwen3TTSConfig, text_tokens, speaker_vec,
-                                      state, contexts_all, n_frames: int, slot: int):
+                                      state, contexts_all, n_frames: int, slot: int, tp=None):
     """Fused prefill + first ramp chunk for one slot (prompt ingest and the
     first audible frames in one dispatch); the slot's context is reset and
     then set in place.  Returns (audio, eos, next embed, state, contexts_all)."""
-    bos, state = prefill_tts_slot(params, cfg, text_tokens, speaker_vec, state, slot)
+    bos, state = prefill_tts_slot(params, cfg, text_tokens, speaker_vec, state, slot, tp)
     ctx0 = torch.zeros_like(contexts_all[0])
-    audio, eos, emb, state, ctx = decode_chunk_audio_slot_tail(params, cfg, bos, state, ctx0, n_frames, slot)
+    audio, eos, emb, state, ctx = decode_chunk_audio_slot_tail(params, cfg, bos, state, ctx0, n_frames, slot, tp)
     contexts_all[slot] = ctx
     return audio, eos, emb, state, contexts_all
 
 
 def decode_chunk_audio_gathered_tail(params: Params, cfg: Qwen3TTSConfig, embeds_all, state,
-                                     contexts_all, n_frames: int, slot_ids):
+                                     contexts_all, n_frames: int, slot_ids, tp=None):
     """Steady lane over a compact gathered batch (``slot_ids`` (W,), padded
     by repeating a valid id).  Returns (audio (W, T'), eos (n, W),
     embeds_all, state, contexts_all), the last three updated in place."""
     rows = bd._gather_rows(state, slot_ids)
     active = torch.ones(slot_ids.shape, dtype=torch.bool, device=embeds_all.device)
     audio, eos, emb, rows, ctx = decode_chunk_audio_tail(params, cfg, embeds_all[slot_ids], rows,
-                                                         contexts_all[slot_ids], n_frames, active)
+                                                         contexts_all[slot_ids], n_frames, active, tp)
     bd._scatter_rows(state, slot_ids, rows)
     embeds_all[slot_ids] = emb
     contexts_all[slot_ids] = ctx

@@ -89,6 +89,16 @@ def quantize_weight4(w: torch.Tensor) -> Quant4Weight:
     return Quant4Weight(_pack_nibbles(q4, 0), scale[0])
 
 
+def slice_rows4(q_packed: torch.Tensor, start: int, stop: int) -> torch.Tensor:
+    """Input rows [start, stop) of a packed int4 payload (..., K/2, N),
+    re-packed in the same layout over ``stop - start`` rows (even): a packed
+    row holds rows k and k + K/2, so a contiguous slice of the bytes is not
+    a contiguous slice of K."""
+    lo, hi = _mm4.unpack_nibbles(q_packed)
+    rows = torch.cat([lo, hi], dim=-2)[..., start:stop, :]
+    return _pack_nibbles(rows, rows.dim() - 2)
+
+
 def dequantize4(qw: Quant4Weight, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     lo, hi = _mm4.unpack_nibbles(qw.q_packed)
     w4 = torch.cat([lo, hi], dim=-2)

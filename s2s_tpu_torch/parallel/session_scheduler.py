@@ -23,10 +23,25 @@ Warm-up runs every program variant once: prompt buckets, priority buckets,
 width buckets, and the TTS ramp and chunk sizes.  In eager PyTorch that
 builds the CUDA kernels and warms the allocator and cuBLAS; capturing the
 programs as CUDA graphs is later work (ROADMAP).
+
+Under tensor parallelism (``--model_parallel N``, a ``tp`` group given) an
+engine runs on each of N ranks over its shard of the weights.  The leader
+(rank 0) is the engine described above; every device program it runs, from
+its driver thread or from ``warmup``, goes through ``_run``, which first
+broadcasts a small command (the program, its host integers and its
+host-made inputs: prompt tokens, text tokens, speaker rows), and a
+follower's :meth:`~BatchedLMScheduler.follow` loop runs the same program on
+its own shard and state.  The programs' outputs are replicated after their
+collectives, so the followers' positions, tokens, embeddings and contexts
+stay equal to the leader's without being sent.  On the card each such
+engine runs on a CUDA stream of its own, on every rank, so the two
+engines' collectives never wait on each other's work.
 """
 
 from __future__ import annotations
 
+import contextlib
+import hashlib
 import logging
 import os
 import threading
@@ -343,13 +358,78 @@ def _device_of(tree) -> torch.device:
     return _device_of(next(iter(tree.values() if isinstance(tree, dict) else tree)))
 
 
-class BatchedLMScheduler(_TraceMixin):
+class _Mirror:
+    """The tensor-parallel half of both engines (see the module docstring):
+    ``_run`` dispatches a program (``_op_<name>``), broadcasting its command
+    first on the leader; :meth:`follow` replays the commands on a follower.
+    With no ``tp`` group ``_run`` is a plain call."""
+
+    _tp: Any
+    _stream: Any
+    device: torch.device
+
+    @property
+    def tp(self):
+        """The engine's tensor-parallel group, or None."""
+        return self._tp
+
+    def _init_mirror(self, tp) -> None:
+        self._tp = tp
+        self._stream = None
+        if tp is not None:
+            tp.active = True
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)  # the weights and state, made on the default stream
+                self._stream = torch.cuda.Stream(self.device)
+
+    def _on_stream(self):
+        return contextlib.nullcontext() if self._stream is None else torch.cuda.stream(self._stream)
+
+    def _run(self, op: str, *args):
+        if self._tp is not None and self._tp.rank == 0:
+            self._tp.broadcast((op, args))
+        return getattr(self, "_op_" + op)(*args)
+
+    def follow(self) -> None:
+        """A follower's engine: run every program the leader broadcasts, on
+        this rank's shard and state, until the leader's stop."""
+        with self._on_stream():
+            while True:
+                command = self._tp.broadcast()
+                if command is None:
+                    break
+                op, args = command
+                self._run(op, *args)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def stop_followers(self) -> None:
+        """The leader, after :meth:`shutdown`: end the followers' loops (once)."""
+        if self._tp is not None and self._tp.rank == 0 and not self._tp.closed:
+            self._tp.broadcast(None)
+
+    def state_summary(self) -> dict:
+        """What every rank must agree on after a run, and this rank's part:
+        ``replicated``, a digest of the state every rank holds whole
+        (positions, next tokens or embeddings and contexts); ``cache_sums``,
+        the sum of |k| and of |v| per layer and kv head of this rank's
+        caches (f64)."""
+        digest = hashlib.sha256()
+        for t in self._replicated_state():
+            digest.update(t.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy().tobytes())
+        caches = self._state.caches
+        return {"replicated": digest.hexdigest(),
+                "cache_sums": [c.double().abs().sum(dim=(1, 3, 4)).cpu().tolist() for c in (caches.k, caches.v)]}
+
+
+class BatchedLMScheduler(_TraceMixin, _Mirror):
     """Slot-based batched decode engine for the local decoder LM, on the
-    port's tail programs (:mod:`s2s_tpu_torch.parallel.batched_decode`)."""
+    port's tail programs (:mod:`s2s_tpu_torch.parallel.batched_decode`).
+    With *tp*, *params* are this rank's shard (see the module docstring)."""
 
     def __init__(self, params, cfg, n_slots: int = 4, max_t: int | None = None, chunk_tokens: int = 8,
                  eos_id: int = 0, priority_tokens: int = 12, priority_chunk: int | None = None,
-                 gate: PriorityGate | None = None) -> None:
+                 gate: PriorityGate | None = None, tp=None) -> None:
         self.params = params
         self.cfg = cfg
         self.device = _device_of(params)
@@ -370,7 +450,7 @@ class BatchedLMScheduler(_TraceMixin):
         self.gate = gate
         # KV capacity cannot exceed the rope table (cfg.max_seq_len)
         self._max_t = min(max_t or cfg.max_seq_len, cfg.max_seq_len)
-        self._state = bd.init_multi_state(cfg, n_slots, self._max_t, self.device)
+        self._state = bd.init_multi_state(cfg, n_slots, self._max_t, self.device, tp)
         self._tokens = torch.zeros((n_slots,), dtype=torch.int32, device=self.device)
         self._slots = {}
         self._free = list(range(n_slots))
@@ -385,6 +465,7 @@ class BatchedLMScheduler(_TraceMixin):
         self._steady_skips = 0
         self._width_buckets = sorted({min(w, n_slots) for w in (4, 8, 16, n_slots)})
         self._init_trace("lm")
+        self._init_mirror(tp)
 
     def _bucket_ids(self, sids: list[int]) -> "np.ndarray":
         width = next(w for w in self._width_buckets if w >= len(sids))
@@ -395,6 +476,15 @@ class BatchedLMScheduler(_TraceMixin):
         with and without the fused priority chunk, every width bucket, every
         priority bucket) before serving.  Runs before the driver thread
         exists and scribbles on slot 0, whose position is reset."""
+        with self._on_stream():
+            self._run("warmup")
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ── the programs (``_run`` dispatches them; followers replay them) ──
+
+    def _op_warmup(self) -> None:
+        tp = self._tp
         buckets, b = [], 16
         while b < self._max_t:
             buckets.append(b)
@@ -404,19 +494,48 @@ class BatchedLMScheduler(_TraceMixin):
             prompt = torch.zeros((1, pb), dtype=torch.int32, device=self.device)
             if self.priority_tokens > 0:
                 bd.prefill_and_chunk_slot_tail(self.params, self.cfg, prompt, 1, self._state, 0,
-                                               self._prio_buckets[-1], self.eos_id)
-            bd.prefill_slot(self.params, self.cfg, prompt, 1, self._state, 0)
+                                               self._prio_buckets[-1], self.eos_id, tp)
+            bd.prefill_slot(self.params, self.cfg, prompt, 1, self._state, 0, tp)
         for w in self._width_buckets:
             ids = torch.zeros((w,), dtype=torch.long, device=self.device)
             bd.decode_chunk_gathered_tail(self.params, self.cfg, self._tokens[ids], self._state,
-                                          self.chunk_tokens, self.eos_id, ids)
+                                          self.chunk_tokens, self.eos_id, ids, tp)
         if self.priority_tokens > 0:
             for n in self._prio_buckets:
                 bd.decode_chunk_slot_tail(self.params, self.cfg, self._tokens[0], self._state, n,
-                                          self.eos_id, 0)
+                                          self.eos_id, 0, tp)
         self._state.pos[0] = 0
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+
+    def _op_prefill(self, tokens: np.ndarray, prompt_len: int, slot: int, n_prio: int):
+        """Prefill *slot*, fused with its first priority chunk of *n_prio*
+        tokens when > 0 (returns that chunk's (toks, emitted), else None)."""
+        prompt = torch.from_numpy(tokens).to(self.device)
+        if n_prio:
+            toks, emitted, tok, self._state = bd.prefill_and_chunk_slot_tail(
+                self.params, self.cfg, prompt, prompt_len, self._state, slot, n_prio, self.eos_id, self._tp)
+            self._tokens[slot] = tok
+            return toks, emitted
+        token, self._state = bd.prefill_slot(self.params, self.cfg, prompt, prompt_len, self._state, slot,
+                                             self._tp)
+        self._tokens[slot] = token
+        return None
+
+    def _op_slot_chunk(self, sid: int, n: int):
+        toks, emitted, tok, self._state = bd.decode_chunk_slot_tail(
+            self.params, self.cfg, self._tokens[sid], self._state, n, self.eos_id, sid, self._tp)
+        self._tokens[sid] = tok
+        return toks, emitted
+
+    def _op_steady_chunk(self, sids: np.ndarray):
+        slot_ids = torch.from_numpy(sids).to(self.device)
+        toks, emitted, tok_out, self._state = bd.decode_chunk_gathered_tail(
+            self.params, self.cfg, self._tokens[slot_ids], self._state, self.chunk_tokens,
+            self.eos_id, slot_ids, self._tp)
+        self._tokens[slot_ids] = tok_out
+        return toks, emitted
+
+    def _replicated_state(self) -> tuple:
+        return self._state.pos, self._tokens
 
     def _prio_bucket(self, n: int) -> int:
         """Smallest warmed slot-chunk size >= n (static shapes only)."""
@@ -663,6 +782,10 @@ class BatchedLMScheduler(_TraceMixin):
         prefills (fused with the first priority chunk when the slot has a
         priority window), then priority-lane slot chunks, then at most one
         gathered steady chunk in flight, held back while priority work runs."""
+        with self._on_stream():
+            self._drive_loop()
+
+    def _drive_loop(self) -> None:
         while True:
             with self._work:
                 self._sweep_cancelled()
@@ -688,19 +811,13 @@ class BatchedLMScheduler(_TraceMixin):
                         slot.inflight = True
                         slot.priority_remaining = max(0, slot.priority_remaining - n_prio)
                         slot.remaining = max(0, slot.remaining - n_prio)
-                tokens = torch.from_numpy(req.tokens).to(self.device)
                 if fused:
                     self._tr("prefill_dispatch", req.slot)
-                    toks, emitted, tok, self._state = bd.prefill_and_chunk_slot_tail(
-                        self.params, self.cfg, tokens, req.prompt_len, self._state, req.slot,
-                        n_prio, self.eos_id)
-                    self._tokens[req.slot] = tok
+                    toks, emitted = self._run("prefill", req.tokens, req.prompt_len, req.slot, n_prio)
                     did_priority = True
                     self._completions.put(self._slot_record(req.slot, slot, cap, toks, emitted))
                 else:
-                    token, self._state = bd.prefill_slot(self.params, self.cfg, tokens, req.prompt_len,
-                                                         self._state, req.slot)
-                    self._tokens[req.slot] = token
+                    self._run("prefill", req.tokens, req.prompt_len, req.slot, 0)
                     running[req.slot] = slot
 
             with self._work:
@@ -719,9 +836,7 @@ class BatchedLMScheduler(_TraceMixin):
                     slot.priority_remaining = max(0, slot.priority_remaining - n)
                     slot.remaining = max(0, slot.remaining - n)
                 self._tr("prio_dispatch", sid)
-                toks, emitted, tok, self._state = bd.decode_chunk_slot_tail(
-                    self.params, self.cfg, self._tokens[sid], self._state, n, self.eos_id, sid)
-                self._tokens[sid] = tok
+                toks, emitted = self._run("slot_chunk", sid, n)
                 did_priority = True
                 self._completions.put(self._slot_record(sid, slot, cap, toks, emitted))
 
@@ -748,21 +863,18 @@ class BatchedLMScheduler(_TraceMixin):
                 self._steady_inflight = True
             sids = sorted(steady)
             self._tr("steady_dispatch", tuple(sids))
-            slot_ids = torch.from_numpy(self._bucket_ids(sids).astype(np.int64)).to(self.device)
-            toks, emitted, tok_out, self._state = bd.decode_chunk_gathered_tail(
-                self.params, self.cfg, self._tokens[slot_ids], self._state, self.chunk_tokens,
-                self.eos_id, slot_ids)
-            self._tokens[slot_ids] = tok_out
+            toks, emitted = self._run("steady_chunk", self._bucket_ids(sids).astype(np.int64))
             self._completions.put(self._steady_record([(sid, steady[sid], caps[sid]) for sid in sids],
                                                       toks, emitted))
 
 
-class BatchedTTSScheduler:
+class BatchedTTSScheduler(_Mirror):
     """Slot-based batched Qwen3-TTS serving on the port's talker tail
-    programs (:mod:`s2s_tpu_torch.models.qwen3_tts`)."""
+    programs (:mod:`s2s_tpu_torch.models.qwen3_tts`).  With *tp*,
+    ``params["talker"]`` is this rank's shard (see the module docstring)."""
 
     def __init__(self, params, cfg, n_slots: int = 4, max_t: int = 1024, context_frames: int = 25,
-                 chunk_frames: int = 8, gate: PriorityGate | None = None) -> None:
+                 chunk_frames: int = 8, gate: PriorityGate | None = None, tp=None) -> None:
         self.params = params
         self.cfg = cfg
         self.device = _device_of(params["talker"])
@@ -780,7 +892,7 @@ class BatchedTTSScheduler:
         while bucket * 2 <= cap:
             bucket *= 2
         self.text_bucket = bucket
-        self._state = bd.init_multi_state(cfg.lm, n_slots, max_t, self.device)
+        self._state = bd.init_multi_state(cfg.lm, n_slots, max_t, self.device, tp)
         self._embeds = torch.zeros((n_slots, cfg.lm.d_model), dtype=cfg.lm.dtype, device=self.device)
         self._contexts = torch.zeros((n_slots, context_frames, cfg.n_q), dtype=torch.int32,
                                      device=self.device)
@@ -796,6 +908,7 @@ class BatchedTTSScheduler:
         self._stop = False
         self._steady_skips = 0
         self._width_buckets = sorted({min(w, n_slots) for w in (4, 8, 16, n_slots)})
+        self._init_mirror(tp)
 
     def _bucket_ids(self, sids: list[int]) -> "np.ndarray":
         width = next(w for w in self._width_buckets if w >= len(sids))
@@ -805,25 +918,70 @@ class BatchedTTSScheduler:
         """Run every dispatchable program once (fused prefill + first ramp
         chunk, plain prefill, every width bucket at the chunk size, every ramp
         size) before serving; resets slot 0 after."""
+        with self._on_stream():
+            self._run("warmup")
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ── the programs (``_run`` dispatches them; followers replay them) ──
+
+    def _op_warmup(self) -> None:
+        tp = self._tp
         text = torch.zeros((1, self.text_bucket), dtype=torch.int32, device=self.device)
         spk = self.params["speakers"][:1]
         qwen3_tts.prefill_and_first_chunk_slot_tail(self.params, self.cfg, text, spk, self._state,
-                                                    self._contexts, _TTS_RAMP[0], 0)
-        bos, self._state = qwen3_tts.prefill_tts_slot(self.params, self.cfg, text, spk, self._state, 0)
+                                                    self._contexts, _TTS_RAMP[0], 0, tp)
+        bos, self._state = qwen3_tts.prefill_tts_slot(self.params, self.cfg, text, spk, self._state, 0, tp)
         self._embeds[0] = bos
         for w in self._width_buckets:
             ids = torch.zeros((w,), dtype=torch.long, device=self.device)
             qwen3_tts.decode_chunk_audio_gathered_tail(self.params, self.cfg, self._embeds, self._state,
-                                                       self._contexts, self.chunk_frames, ids)
+                                                       self._contexts, self.chunk_frames, ids, tp)
         for n in _TTS_RAMP:
             _, _, emb, self._state, ctx = qwen3_tts.decode_chunk_audio_slot_tail(
-                self.params, self.cfg, self._embeds[0], self._state, self._contexts[0], n, 0)
+                self.params, self.cfg, self._embeds[0], self._state, self._contexts[0], n, 0, tp)
             self._embeds[0] = emb
             self._contexts[0] = ctx
         self._state.pos[0] = 0
         self._contexts[0] = 0
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+
+    def _op_prefill(self, text_tokens, speaker, slot: int, n0: int):
+        """Prefill *slot*, fused with its first ramp chunk of *n0* frames
+        when > 0 (returns that chunk's (audio, eos), else None).  *speaker*:
+        a tensor, or on a tensor-parallel engine a host copy
+        (:func:`_host_speaker`)."""
+        text = torch.from_numpy(np.asarray(text_tokens, np.int32)).to(self.device)
+        if isinstance(speaker, tuple):
+            values, dtype = speaker
+            speaker = torch.from_numpy(values).to(self.device).to(getattr(torch, dtype))
+        else:
+            speaker = torch.as_tensor(speaker).to(self.device)
+        if n0:
+            audio, eos, emb, self._state, self._contexts = qwen3_tts.prefill_and_first_chunk_slot_tail(
+                self.params, self.cfg, text, speaker, self._state, self._contexts, n0, slot, self._tp)
+            self._embeds[slot] = emb
+            return audio, eos
+        bos, self._state = qwen3_tts.prefill_tts_slot(self.params, self.cfg, text, speaker, self._state, slot,
+                                                      self._tp)
+        self._embeds[slot] = bos
+        self._contexts[slot] = 0
+        return None
+
+    def _op_slot_chunk(self, sid: int, n: int):
+        audio, eos, emb, self._state, ctx = qwen3_tts.decode_chunk_audio_slot_tail(
+            self.params, self.cfg, self._embeds[sid], self._state, self._contexts[sid], n, sid, self._tp)
+        self._embeds[sid] = emb
+        self._contexts[sid] = ctx
+        return audio, eos
+
+    def _op_steady_chunk(self, sids: np.ndarray, n: int):
+        slot_ids = torch.from_numpy(sids).to(self.device)
+        audio, eos, self._embeds, self._state, self._contexts = qwen3_tts.decode_chunk_audio_gathered_tail(
+            self.params, self.cfg, self._embeds, self._state, self._contexts, n, slot_ids, self._tp)
+        return audio, eos
+
+    def _replicated_state(self) -> tuple:
+        return self._state.pos, self._embeds, self._contexts
 
     # ── session API ──────────────────────────────────────────────────
 
@@ -1014,7 +1172,10 @@ class BatchedTTSScheduler:
         """Dispatch loop, the JAX driver's policy: fused prefill + first ramp
         chunk, then ramp chunks in the priority lane, then one gathered
         steady chunk at a time."""
-        cfg = self.cfg
+        with self._on_stream():
+            self._drive_loop()
+
+    def _drive_loop(self) -> None:
         while True:
             with self._work:
                 self._sweep_cancelled()
@@ -1039,19 +1200,13 @@ class BatchedTTSScheduler:
                         slot.inflight = True
                         slot.chunks_done = 1
                         slot.remaining = max(0, slot.remaining - n0)
-                text = torch.from_numpy(np.asarray(req.text_tokens, np.int32)).to(self.device)
-                speaker = torch.as_tensor(req.speaker_vec).to(self.device)
+                speaker = req.speaker_vec if self._tp is None else _host_speaker(req.speaker_vec)
                 if fused:
-                    audio, eos, emb, self._state, self._contexts = qwen3_tts.prefill_and_first_chunk_slot_tail(
-                        self.params, cfg, text, speaker, self._state, self._contexts, n0, req.slot)
-                    self._embeds[req.slot] = emb
+                    audio, eos = self._run("prefill", req.text_tokens, speaker, req.slot, n0)
                     did_priority = True
                     self._completions.put(self._slot_record(req.slot, slot, n0, cap, audio, eos))
                 else:
-                    bos, self._state = qwen3_tts.prefill_tts_slot(self.params, cfg, text, speaker,
-                                                                  self._state, req.slot)
-                    self._embeds[req.slot] = bos
-                    self._contexts[req.slot] = 0
+                    self._run("prefill", req.text_tokens, speaker, req.slot, 0)
                     running[req.slot] = slot
 
             with self._work:
@@ -1066,10 +1221,7 @@ class BatchedTTSScheduler:
                     slot.inflight = True
                     slot.chunks_done += 1
                     slot.remaining = max(0, slot.remaining - n)
-                audio, eos, emb, self._state, ctx = qwen3_tts.decode_chunk_audio_slot_tail(
-                    self.params, cfg, self._embeds[sid], self._state, self._contexts[sid], n, sid)
-                self._embeds[sid] = emb
-                self._contexts[sid] = ctx
+                audio, eos = self._run("slot_chunk", sid, n)
                 did_priority = True
                 self._completions.put(self._slot_record(sid, slot, n, cap, audio, eos))
 
@@ -1098,11 +1250,16 @@ class BatchedTTSScheduler:
                     s.remaining = max(0, s.remaining - n)
                 self._steady_inflight = True
             sids = sorted(steady)
-            slot_ids = torch.from_numpy(self._bucket_ids(sids).astype(np.int64)).to(self.device)
-            audio, eos, self._embeds, self._state, self._contexts = qwen3_tts.decode_chunk_audio_gathered_tail(
-                self.params, cfg, self._embeds, self._state, self._contexts, n, slot_ids)
+            audio, eos = self._run("steady_chunk", self._bucket_ids(sids).astype(np.int64), n)
             self._completions.put(self._steady_record([(sid, steady[sid], caps[sid]) for sid in sids], n,
                                                       audio, eos))
+
+
+def _host_speaker(speaker) -> tuple[np.ndarray, str]:
+    """A speaker row as a tensor-parallel command carries it: its values in
+    f32 on the host (exact for bf16 and f32) and its dtype's name."""
+    t = torch.as_tensor(speaker)
+    return t.detach().float().cpu().numpy(), str(t.dtype).removeprefix("torch.")
 
 
 GLOBAL_PRIORITY_GATE = PriorityGate()

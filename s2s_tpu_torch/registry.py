@@ -20,6 +20,12 @@ the batched Parakeet service, the batched LM engine and the batched TTS
 engine, as the JAX registry builds them.  The engines share the priority
 gate, which the device scheduler also holds while a session's interactive
 STT runs.
+
+With ``--model_parallel N`` the batched LM engine and the batched Qwen3-TTS
+engine's talker run over N ranks (:func:`tp_engines`; the single-session
+paths never do, as in the JAX registry): each is built on the leader here
+and on each follower by :func:`build_tp_engines`, from the same weights,
+quantized whole and then split (:func:`_tp_shard_lm`).
 """
 
 from __future__ import annotations
@@ -61,10 +67,14 @@ class HandlerContext:
     #: how many pipeline units share this process (the cross-session
     #: batched services engage only when > 1)
     n_units: int = 1
-    #: tensor-parallel width (--model_parallel); the builder refuses > 1
+    #: tensor-parallel width (--model_parallel); > 1 splits the batched LM
+    #: and the Qwen3-TTS talker over that many ranks (see _tp_shard_lm)
     model_parallel: int = 1
     #: the device every model of the port lives on
     device: torch.device = torch.device("cpu")
+    #: the leader's tensor-parallel runtime (``parallel.mesh.TPRuntime``)
+    #: when model_parallel > 1
+    tp: Any = None
 
 
 @dataclass(frozen=True)
@@ -264,36 +274,108 @@ def _load_llm_tokenizer(path):
     return BPETokenizer(path)
 
 
+def tp_engines(args) -> tuple[str, ...]:
+    """The engines a ``--model_parallel`` serve runs over its ranks
+    (``parallel.mesh.TP_ENGINES`` names): ``"lm"`` for the batched local LM,
+    ``"tts"`` for the batched Qwen3-TTS engine."""
+    names = []
+    if (resolve_backend_alias("llm", args.module.llm_backend) == "local-jax"
+            and args.llm_config.batched_slots > 1):
+        names.append("lm")
+    if args.module.tts == "qwen3" and args.tts_config.batched_slots > 1:
+        names.append("tts")
+    return tuple(names)
+
+
+def _tp_group(ctx: HandlerContext, engine: str):
+    """The leader's group for *engine* (None without tensor parallelism);
+    raises, as the JAX registry does, when no runtime spans the ranks."""
+    if ctx.model_parallel <= 1:
+        return None
+    if ctx.tp is None:
+        from s2s_tpu_torch.parallel.mesh import tp_layout
+
+        tp_layout(ctx.model_parallel, ctx.device)  # raises when too few devices are visible
+        raise RuntimeError(f"--model_parallel {ctx.model_parallel}: no tensor-parallel runtime; the builder "
+                           "starts one (builder.build_pipeline)")
+    return ctx.tp.group(engine)
+
+
+def check_tp_heads(cfg, n: int, what: str) -> None:
+    """Raise when *n* ranks do not divide the query and kv heads of *cfg*
+    (each rank holds whole heads and their kv heads)."""
+    if cfg.n_heads % n or cfg.n_kv_heads % n:
+        raise ValueError(f"--model_parallel {n}: {what} has {cfg.n_heads} query and {cfg.n_kv_heads} kv heads, "
+                         f"which {n} ranks do not divide")
+
+
+def _tp_shard_lm(params, cfg, tp, what: str, talker: bool = False):
+    """One rank's shard of a decoder-LM tree for ``--model_parallel`` (the
+    JAX registry's ``_tp_shard_lm``): the megatron specs of
+    ``decoder_lm.param_shardings``, taken by ``mesh.local_shard``.  The
+    Qwen3-TTS talker (*talker*) has no head of its own (its head is the
+    separate ``codec_head``) and keeps its codec embedding whole.  Called on
+    a quantized tree: the whole tree is quantized first, so a row-parallel
+    shard keeps the scales of its whole input dim, as JAX's quantize of a
+    sharded tree computes them."""
+    from s2s_tpu_torch.models import decoder_lm
+    from s2s_tpu_torch.models.common import P
+    from s2s_tpu_torch.parallel.mesh import local_shard
+
+    check_tp_heads(cfg, tp.size, what)
+    specs = decoder_lm.param_shardings(cfg)
+    if talker:
+        specs.pop("lm_head", None)
+        specs["embed"] = P()
+    logger.info("TP-sharding %s: rank %d of %d", what, tp.rank, tp.size)
+    return local_shard(params, specs, tp.rank, tp.size)
+
+
+def _build_lm_engine(config, device: torch.device, tp=None):
+    """The batched LM: (the whole tree the handler keeps, the engine).  As
+    in the JAX package, the batched LM quantizes random init too; with *tp*
+    the engine runs on this rank's shard of the quantized tree, and no rank
+    keeps the whole tree (the handler gets None: its single-session path,
+    sampled decode, is refused under tensor parallelism, see
+    ``builder.check_supported``)."""
+    from s2s_tpu_torch.llm.local_backend import lm_config
+    from s2s_tpu_torch.models import decoder_lm
+    from s2s_tpu_torch.parallel.session_scheduler import BatchedLMScheduler
+
+    cfg = lm_config(config.model_size)
+    tokenizer = _load_llm_tokenizer(config.tokenizer)
+    tree = _load_checkpoint(config.checkpoint)
+    p = (weights.tree_to_torch(tree, device) if tree is not None
+         else _random_init(decoder_lm.init_params, cfg, device, "local-jax LLM"))
+    p = quantize_mode(p, config.quantize)
+    shard = p
+    if tp is not None:
+        shard, p = _tp_shard_lm(p, cfg, tp, f"--llm_model_size {config.model_size}"), None
+    engine = BatchedLMScheduler(
+        shard, cfg, n_slots=config.batched_slots,
+        max_t=config.batched_max_t or min(cfg.max_seq_len, 2048),
+        eos_id=tokenizer.eos_id if tokenizer is not None else 0,
+        chunk_tokens=config.chunk_tokens, priority_tokens=config.priority_tokens,
+        gate=_global_gate(), tp=tp,
+    )
+    return p, engine
+
+
 def _make_local_llm(config, ctx: HandlerContext):
-    from s2s_tpu_torch.llm.local_backend import LocalTorchLLMHandler, lm_config
+    from s2s_tpu_torch.llm.local_backend import LocalTorchLLMHandler
 
     check_mode(config.quantize, LLM_MODES)
     tokenizer = _load_llm_tokenizer(config.tokenizer)
     params = shared_lm = None
     if config.batched_slots > 1:
-        # ONE weight set + ONE batched decode engine for every unit/session;
-        # as in the JAX package, the batched LM quantizes random init too
-        def build():
-            from s2s_tpu_torch.models import decoder_lm
-            from s2s_tpu_torch.parallel.session_scheduler import BatchedLMScheduler
-
-            cfg = lm_config(config.model_size)
-            tree = _load_checkpoint(config.checkpoint)
-            p = (weights.tree_to_torch(tree, ctx.device) if tree is not None
-                 else _random_init(decoder_lm.init_params, cfg, ctx.device, "local-jax LLM"))
-            p = quantize_mode(p, config.quantize)
-            engine = BatchedLMScheduler(
-                p, cfg, n_slots=config.batched_slots,
-                max_t=config.batched_max_t or min(cfg.max_seq_len, 2048),
-                eos_id=tokenizer.eos_id if tokenizer is not None else 0,
-                chunk_tokens=config.chunk_tokens, priority_tokens=config.priority_tokens,
-                gate=_global_gate(),
-            )
-            return p, engine
-
+        # ONE weight set + ONE batched decode engine for every unit/session
         params, shared_lm = ctx.model_cache.get(
             ("local-lm", config.model_size, config.checkpoint, config.batched_slots, config.priority_tokens,
-             config.batched_max_t, config.chunk_tokens, config.quantize, str(ctx.device)), build)
+             config.batched_max_t, config.chunk_tokens, config.quantize, str(ctx.device), ctx.model_parallel,
+             ctx.tp),
+            lambda: _build_lm_engine(config, ctx.device, _tp_group(ctx, "lm")))
+        if ctx.tp is not None:
+            ctx.tp.attach("lm", shared_lm)
     else:
         tree = _load_checkpoint(config.checkpoint)
         if tree is not None:
@@ -345,41 +427,71 @@ def _make_local_vlm(config, ctx: HandlerContext):
     )
 
 
+def _build_qwen3_model(config, device: torch.device):
+    from s2s_tpu_torch.models.qwen3_tts import CONFIGS, Qwen3TTS
+
+    tree = _load_checkpoint(config.checkpoint)
+    tokenizer = _load_llm_tokenizer(config.tokenizer)
+    return Qwen3TTS(
+        params=weights.qwen3_tts_params(tree, device) if tree is not None else None,
+        cfg=CONFIGS[config.model_size](), chunk_frames=config.streaming_chunk_size,
+        int8=config.quantize or False, tokenizer=tokenizer, device=device,
+    )
+
+
+def _build_tts_engine(model, config, tp=None):
+    """The batched Qwen3-TTS engine over *model*'s weights; with *tp*, on
+    this rank's shard of the (already quantized) talker, the code predictor
+    and Code2Wav replicated, as the JAX registry shards it."""
+    from s2s_tpu_torch.parallel.session_scheduler import BatchedTTSScheduler
+
+    params = model.params
+    if tp is not None:
+        params = dict(model.params)
+        params["talker"] = _tp_shard_lm(model.params["talker"], model.cfg.lm, tp,
+                                        f"the Qwen3-TTS talker (--tts_model_size {config.model_size})",
+                                        talker=True)
+    return BatchedTTSScheduler(
+        params, model.cfg, n_slots=config.batched_slots,
+        max_t=config.batched_max_t or min(model.cfg.lm.max_seq_len, 2048),
+        context_frames=config.context_frames, chunk_frames=config.streaming_chunk_size,
+        gate=_global_gate(), tp=tp,
+    )
+
+
+def build_tp_engines(args, runtime) -> dict[str, Any]:
+    """A follower's engines (:func:`tp_engines`), each built as the leader's
+    registry builds it, on this rank's shard, over *runtime*'s groups."""
+    engines: dict[str, Any] = {}
+    names = tp_engines(args)
+    if "lm" in names:
+        _, engines["lm"] = _build_lm_engine(args.llm_config, runtime.device, runtime.group("lm"))
+    if "tts" in names:
+        model = _build_qwen3_model(args.tts_config, runtime.device)
+        engines["tts"] = _build_tts_engine(model, args.tts_config, runtime.group("tts"))
+    return engines
+
+
 def _make_qwen3_tts(config, ctx: HandlerContext):
-    from s2s_tpu_torch.models.qwen3_tts import Qwen3TTS, load_speaker_file
-    from s2s_tpu_torch.tts.qwen3_handler import Qwen3TTSHandler, config_for
+    from s2s_tpu_torch.models.qwen3_tts import load_speaker_file
+    from s2s_tpu_torch.tts.qwen3_handler import Qwen3TTSHandler
 
     check_mode(config.quantize, TTS_MODES)
-
-    def build():
-        tree = _load_checkpoint(config.checkpoint)
-        tokenizer = _load_llm_tokenizer(config.tokenizer)
-        return Qwen3TTS(
-            params=weights.qwen3_tts_params(tree, ctx.device) if tree is not None else None,
-            cfg=config_for(config.model_size), chunk_frames=config.streaming_chunk_size,
-            int8=config.quantize or False, tokenizer=tokenizer, device=ctx.device,
-        )
-
     model = ctx.model_cache.get(
         ("qwen3_tts", config.model_size, config.checkpoint, config.streaming_chunk_size,
          config.quantize, config.tokenizer, str(ctx.device)),
-        build,
+        lambda: _build_qwen3_model(config, ctx.device),
     )
     shared_tts = None
     if config.batched_slots > 1:
-        from s2s_tpu_torch.parallel.session_scheduler import BatchedTTSScheduler
-
         shared_tts = ctx.model_cache.get(
             ("qwen3_tts_batched", config.model_size, config.checkpoint, config.batched_slots,
              config.batched_max_t, config.context_frames, config.streaming_chunk_size, config.quantize,
-             str(ctx.device)),
-            lambda: BatchedTTSScheduler(
-                model.params, model.cfg, n_slots=config.batched_slots,
-                max_t=config.batched_max_t or min(model.cfg.lm.max_seq_len, 2048),
-                context_frames=config.context_frames, chunk_frames=config.streaming_chunk_size,
-                gate=_global_gate(),
-            ),
+             str(ctx.device), ctx.model_parallel, ctx.tp),
+            lambda: _build_tts_engine(model, config, _tp_group(ctx, "tts")),
         )
+        if ctx.tp is not None:
+            ctx.tp.attach("tts", shared_tts)
     ref_audio = None
     if config.ref_audio:
         import wave

@@ -23,7 +23,7 @@ from typing import Any, Iterator, Optional
 
 import torch
 
-from s2s_tpu_torch.models.qwen3_tts import Qwen3TTS, Qwen3TTSConfig, speaker_from_reference
+from s2s_tpu_torch.models.qwen3_tts import CONFIGS, Qwen3TTS, Qwen3TTSConfig, speaker_from_reference
 from s2s_tpu_torch.tts.base import BaseTTSHandler
 
 logger = logging.getLogger(__name__)
@@ -75,7 +75,7 @@ def estimate_max_new_tokens(
 
 
 def config_for(model_size: str) -> Qwen3TTSConfig:
-    return {"1.7b": Qwen3TTSConfig.qwen3_tts_12hz_1_7b, "tiny": Qwen3TTSConfig.tiny}[model_size]()
+    return CONFIGS[model_size]()
 
 
 class Qwen3TTSHandler(BaseTTSHandler):

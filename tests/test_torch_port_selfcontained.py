@@ -79,9 +79,10 @@ SHARED = {
         ["registry.py"], {}, {"_make_whisper_stt", "_make_parakeet_stt", "_make_paraformer_stt", "_make_local_llm",
                               "_make_local_vlm", "_make_qwen3_tts", "_make_kokoro_tts", "_make_mms_tts",
                               "_make_pocket_tts", "_make_chattts", "STT_BACKENDS", "LLM_BACKENDS", "TTS_BACKENDS",
-                              "resolve_backend_alias"},
+                              "resolve_backend_alias", "_tp_shard_lm"},
         "folded: the registry types, loaders, aliases and lookup are copied; the factories and the registries "
-        "are the port's (its devices, its models)"),
+        "are the port's (its devices, its models); _tp_shard_lm takes one rank's shard of plain tensors where "
+        "the JAX one places the tree on a mesh"),
     "stt/paraformer_handler.py": (
         ["stt/paraformer_handler.py"], {}, set(),
         "folded: setup (Chinese by default) is copied; the transcriber (_build_transcriber, the port's name) "

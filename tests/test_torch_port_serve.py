@@ -19,7 +19,8 @@
   checkpoint) each answer a text turn and a voice turn; the enhancer takes
   every VAD-final segment, and turns without an image never run the tower
   (the image path is held in ``test_torch_port_vision.py``).
-- ``--model_parallel`` above 1 raises at build time instead of degrading.
+- ``--model_parallel 2`` with one device visible raises the device-count
+  error at build time (``tests/test_torch_port_tp.py`` serves it).
 - The slice's stages against the JAX package's handlers on the same tiny
   weights: the LLM streams the same text, the STT transcribes the same tokens
   (the TTS stream is held in ``test_torch_port_qwen3_tts.py``).
@@ -358,9 +359,11 @@ def test_port_imports_and_builds_without_jax():
 
 
 def test_model_parallel_raises_at_build_time():
+    """Without a layout of its ranks, ``--model_parallel 2`` on the CPU (one
+    device) raises the device-count error before anything is built."""
     from s2s_tpu_torch import cli
 
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
+    with pytest.raises(RuntimeError, match="--model_parallel 2 needs 2 devices; 1 visible"):
         cli.build_from_argv(["--device", "cpu", *BATCHED_FLAGS, "--model_parallel", "2"], threading.Event())
 
 
