@@ -16,7 +16,8 @@ Phases, each printed on its own line:
    regime's time at up to 8 rows; also at one rank's shapes of two,
    ``tp_serve``'s), then ``decode_attention`` (tail form at the SmolLM2-1.7B and Qwen3-TTS
    talker shapes, the talker at its max_seq_len 4096, whose keys stream
-   through a ring of tiles, and one rank's heads of two, with ``F.scaled_dot_product_attention`` timed
+   through a ring of tiles, one rank's heads of two, and SmolLM2-360M's
+   15/5 heads at B 4 and 8 (G = 3), with ``F.scaled_dot_product_attention`` timed
    beside it at every shape and the launch plan (cluster size, tile rows,
    stages) printed; rows duplicated at B 4 and 16
    must come out bitwise equal; then the Pallas-contract form, whose caches
@@ -47,7 +48,11 @@ Phases, each printed on its own line:
 8. the W8A8-dynamic and packed-int4 kernels against their plain versions
    (``int8_matmul_dyn`` bit-equal at the int8 shapes x rows 8, 16, 17, 32
    and 64, with its launch plan, the W8A16 kernel on the same weights and,
-   above 16 rows, ``torch._int_mm`` plus its epilogue timed beside it; its
+   above 16 rows, ``torch._int_mm`` plus its epilogue timed beside it; then
+   at one rank's row-parallel shapes of two (``TP_DYN_SHAPES`` x
+   ``TP_DYN_ROWS``) given the rows' absmax over both halves of K
+   (``row_amax``), bit-equal to the plain version with the same maxima and
+   timed beside the kernel with its own absmax; its
    SASS must hold int8 ``wgmma`` (IGMMA) and a call must allocate only its
    output; ``int4_matmul`` within 2 bf16 ulps at the code-predictor and LM shapes,
    as ``weight_only_phase`` runs ``int8_matmul``, with tinygemm's
@@ -228,27 +233,44 @@ Phases, each printed on its own line:
    and tail chunk and the tiny talker's fused prefill and gathered chunk
    (head dim 64, the decode-attention kernel's) over the ranks against one
    rank: tokens and codes equal, audio within ``TP_TALKER_ATOL``;
-   SmolLM2-1.7B's int8 prefill logits within ``TP_LOGITS_REL``; the
+   SmolLM2-1.7B's prefill logits in int8 within ``TP_LOGITS_REL`` and in
+   int8-dyn (the W8A8 kernel, the rows' absmax reduced across the ranks)
+   read with the argmax equal, and one W8A8 row-parallel projection at
+   full width within ``TP_DYN_LAYER_ULPS`` of one rank's (inputs equal:
+   what the split itself keeps); SmolLM2-360M's (15/5 heads:
+   the attention whole on each rank) within ``TP_360M_LOGITS_REL``;
+   ``TP_SAMPLED_TOKENS`` sampled tokens of the tiny LM through the handler
+   on the engine's single-session programs equal to one rank's; the
    transport's all_reduce time; with two or more cards the same over NCCL;
 31. ``tp_serve`` (after phase 6): on one card ``serve --model_parallel 2``
    must raise the device-count error; then the 4-session serve with
    ``--tts_quantize int8 --model_parallel 2`` (``TP_SERVE_FLAGS``), full
-   width and depth, the follower started by the serve on the same card
+   width at ``SERVE_DEPTHS`` (its follower too), the follower started by
+   the serve on the same card
    (a rehearsal, not TP's speed on two cards): four concurrent text turns
-   answered with audio and response.done, an audio turn, the int8 and
+   answered with audio and response.done, voice turns (``VOICE_TONES_HZ``
+   until one is answered), the int8 and
    decode-attention launches of each rank (> 0, equal), each rank's
-   allocated bytes, each engine's replicated state equal on every rank.
+   allocated bytes, each engine's replicated state equal on every rank;
+32. ``tp_quant_serve`` (after phase 11): the 8-session quantized serve over
+   two ranks (``TP_QUANT_SERVE_FLAGS``: int8-dyn LM and talker), full width
+   and depth, both ranks on the card through gloo: eight concurrent text
+   turns answered with audio and response.done; the W8A8 kernel's launches
+   by rows on each rank (> 0, at 8 rows or more, equal across ranks), the
+   int8 and decode-attention launches equal, the replicated state equal.
 
-Since ``tp_serve`` joined, the serves other than phase 31 run
+Since ``tp_serve`` joined, the serves other than phase 32 run
 SmolLM2-1.7B (except phases 6 and 15), the Qwen3-TTS talker and its code
 predictor cut in depth (``SERVE_DEPTHS``, widths kept).  After every serve a ``serve_memory`` line
 gives what stays allocated on the card once the phase has returned, before
-and after a garbage collection.
+and after a garbage collection (the WebSocket clients run on threads of
+their own, ``run_client``, so that nothing of theirs holds a phase's frame).
 
 Phases 3, 4, 8, 9, 10, 12, 13, 14, 21, 23, 25, 27 and 28 run with TF32 off, so that f32
-products are compared in full f32; the serves and phases 16-20 run with
-torch's defaults, as ``s2s_tpu_torch.cli`` does (cuDNN's convolutions, so
-Kokoro's and VITS's, in TF32).  A ``seconds`` line gives each
+products are compared in full f32; phases 16-20 run with torch's defaults
+(cuDNN's convolutions in TF32), and the serves with both TF32 flags off, as
+the port's builder sets them for its serve (``builder.full_f32``; each
+phase's flags are restored after it).  A ``seconds`` line gives each
 phase's time.  Every kernel's line and the JSON line give its
 bound: the larger of the bytes it must move over 3.35 TB/s and its
 operations over the card's peak for their type.
@@ -264,10 +286,16 @@ the deployment, Kokoro, MMS, Pocket and ChatTTS serves' as
 ``whisper_serve_lm_launches``); the log-mel's ``launches_by_caller`` counts
 those four TTS serves and the Paraformer serve too, the flash kernel's the
 Whisper and the Paraformer/VLM serves, and its ``siglip`` entry SigLIP's
-shape; the int8 and decode-attention entries carry ``tp_serve``'s launches,
-leader first, as ``tp_serve_launches_by_rank``); the last line is
+shape; the int8 and decode-attention entries carry ``tp_serve``'s and
+``tp_quant_serve``'s launches, leader first, as ``tp_serve_launches_by_rank``
+and ``tp_quant_serve_launches_by_rank``, the W8A8 entry the latter); the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
 before those lines.
+
+``tf32_ab`` is not a phase: run alone (``python3 -c 'import chip_smoke;
+chip_smoke.tf32_ab()'``), it serves the Kokoro, MMS, Pocket, ChatTTS and
+single-session Parakeet cascades with TF32 off (as served) and on, in
+turns, to read what the serve's TF32 switch costs.
 """
 
 from __future__ import annotations
@@ -367,8 +395,13 @@ ATTN_SHAPES = [("smollm2-1.7b", 32, 32, 64, 512, (6, 1, 2, 4, 8, 12)),
                ("qwen3-tts-talker", 16, 8, 128, 192, (3, 2, 4)),
                ("qwen3-tts-talker-4096", 16, 8, 128, 4096, (3,)),
                ("smollm2-1.7b-rank-of-2", 16, 16, 64, 512, (6, 1, 2, 4, 8, 12)),
-               ("qwen3-tts-talker-rank-of-2", 8, 4, 128, 192, (3, 2, 4))]
+               ("qwen3-tts-talker-rank-of-2", 8, 4, 128, 192, (3, 2, 4)),
+               ("smollm2-360m", 15, 5, 64, 512, (6, 1))]
 ATTN_ROWS = [1, 4, 16]
+#: rows of a shape where they are not ATTN_ROWS: SmolLM2-360M's 15 query
+#: heads over 5 kv heads (G = 3, launched as the G = 4 template; two ranks
+#: keep its attention whole) at the 4- and 8-session steps
+ATTN_SHAPE_ROWS = {"smollm2-360m": (4, 8)}
 #: the decode-attention shape in the JSON line: the 4-session LM steady chunk
 ATTN_HEADLINE = ("smollm2-1.7b", 4, 6)
 #: (K, N) of the int8 linears: SmolLM2-1.7B, then the Qwen3-TTS talker and
@@ -391,6 +424,13 @@ DYN_ROWS = [8, 16, 17, 32, 64]
 #: the W8A8 shape in the JSON line: a SmolLM2-1.7B gate/up projection in the
 #: 32-token prompt bucket (above 16 rows, so ``torch._int_mm`` runs beside it)
 DYN_HEADLINE = (32, 2048, 8192)
+#: the W8A8 kernel at one rank's row-parallel shapes of two (``tp_quant_serve``'s):
+#: SmolLM2-1.7B's wo (1024 -> 2048, also the talker's) and w_down (4096 ->
+#: 2048), the talker's w_down (3072 -> 2048); at the 8-session step and the
+#: 32-token prompt bucket, the rows' absmax given (``row_amax``) over both
+#: ranks' halves of K
+TP_DYN_SHAPES = [(1024, 2048), (4096, 2048), (3072, 2048)]
+TP_DYN_ROWS = [8, 32]
 #: (K, N) of the int4 linears: the Qwen3-TTS code predictor, then the
 #: SmolLM2-1.7B shapes it does not share
 INT4_SHAPES = [(2048, 2048), (2048, 1024), (2048, 6144), (6144, 2048), (2048, 8192), (8192, 2048)]
@@ -487,18 +527,20 @@ TTS_SERVES = {"kokoro": ("kokoro_serve", "synthesize"), "facebookMMS": ("mms_ser
               "pocket": ("pocket_serve", "stream"), "chatTTS": ("chattts_serve", "stream")}
 #: the depths of SmolLM2-1.7B (24 layers), of the Qwen3-TTS talker (28) and
 #: of its code predictor (5, run 15 times a frame) in the serves other than
-#: the tensor-parallel one, cut (their widths kept) so the whole run keeps
-#: its time since ``tp_serve`` joined it (PERF.md §4): serve name -> (LM,
-#: talker, code-predictor layers), None where the serve keeps the model
-#: whole (the main path's, ``batched_serve``, keeps its int8 LM whole; the
-#: Whisper serve's LM comes from a converted checkpoint of its published
-#: depth)
+#: ``tp_quant_serve``, cut (their widths kept; a tensor-parallel serve's
+#: followers too, ``follower_at_depth``) so the whole run keeps its time
+#: since ``tp_serve`` and ``tp_quant_serve`` joined it (PERF.md §4): serve
+#: name -> (LM, talker, code-predictor layers), None where the serve keeps
+#: the model whole (the main path's, ``batched_serve``, keeps its int8 LM
+#: whole; the Whisper serve's LM comes from a converted checkpoint of its
+#: published depth)
 SERVE_LM_LAYERS, SERVE_TALKER_LAYERS, SERVE_CP_LAYERS = 12, 14, 2
 SERVE_TTS = (SERVE_TALKER_LAYERS, SERVE_CP_LAYERS)
 SERVE_DEPTHS = {"serve": (SERVE_LM_LAYERS, *SERVE_TTS),
                 "batched_serve": (None, *SERVE_TTS),
                 **{TTS_SERVES[t][0]: (SERVE_LM_LAYERS, None, None) for t in TTS_SERVES},
                 "quant_serve": (SERVE_LM_LAYERS, *SERVE_TTS),
+                "tp_serve": (SERVE_LM_LAYERS, *SERVE_TTS),
                 "whisper_serve": (None, *SERVE_TTS),
                 "deployment_serve": (SERVE_LM_LAYERS, *SERVE_TTS)}
 #: tiny Paraformer, SigLIP with the fixture's text model, and DeepFilter,
@@ -594,6 +636,34 @@ TP_TALKER_ATOL = 2e-3
 #: row-parallel sum rounds every rank's partial to bf16 before the f32 sum,
 #: one rounding more than one device's product, 48 times over the layers
 TP_LOGITS_REL = 3e-2
+#: SmolLM2-360M in bf16 over two ranks, which keep its 15/5-head attention
+#: whole (only w_down's partials are rounded before the sum, 32 times): a
+#: bound set before its first run, by TP_LOGITS_REL's reasoning
+TP_360M_LOGITS_REL = 3e-2
+#: SmolLM2-1.7B in int8-dyn (the W8A8 kernel at 64 rows): its prefill
+#: logits over the ranks against one rank are read, with the argmax equal
+#: unless one rank's top two lie closer than the error.  They hold no bound
+#: like TP_LOGITS_REL (5.19e-2 on an H100, PERF.md): a row whose activations
+#: differ by a partial sum's rounding can quantize a whole step (1/127 of its
+#: absmax) apart, and the layers compound it.  What the split itself must
+#: keep is checked where the inputs agree: one row-parallel W8A8
+#: projection at full width (SmolLM2-1.7B's w_down, 8192 -> 2048, 64 rows)
+#: over the ranks, the rows' absmax reduced: bit-equal to the plain version
+#: of each rank's call given the whole rows' absmax, summed in f32, and
+#: within TP_DYN_LAYER_ULPS bf16 ulps of max|one rank| (each rank's partial
+#: and the sum rounded once each); the same projection with each rank's own
+#: absmax is read beside it
+TP_DYN_LAYER_ULPS = 2
+#: that projection: (rows, K, N)
+TP_DYN_LAYER = (64, 8192, 2048)
+#: the sampled decode over the ranks: tokens of the tiny f32 LM at this
+#: temperature, the handler's generator seeded 0, against one rank's
+TP_SAMPLED_TOKENS = 16
+TP_SAMPLED_TEMPERATURE = 0.7
+#: the quantized serve over two ranks: QUANT_SERVE_FLAGS (8 sessions, int8-dyn
+#: LM) with the talker in int8-dyn too, so the LM's and the talker's 8-row
+#: steady steps take the W8A8 kernel with the rows' absmax reduced across ranks
+TP_QUANT_SERVE_FLAGS = [*QUANT_SERVE_FLAGS, "--tts_quantize", "int8-dyn", "--model_parallel", str(TP_RANKS)]
 #: the all_reduce timed on each transport: four sessions' rows at SmolLM2's width
 TP_BLOCK = (4, 2048)
 L2_BYTES = 50 << 20
@@ -609,6 +679,34 @@ def phase(name: str, **fields) -> None:
     print(json.dumps({"phase": name, **fields}), flush=True)
 
 
+def run_client(coro):
+    """``asyncio.run(coro)`` on a thread of its own (``on_own_thread``)."""
+    return on_own_thread(asyncio.run, coro)
+
+
+def on_own_thread(fn, *args):
+    """``fn(*args)`` on a thread of its own, for the WebSocket clients: the
+    websockets client keeps a closed connection's exception, whose
+    traceback holds the frames that were on the stack, and run on this
+    thread they would hold the phase's frame, with its serve, past the
+    phase (the ``serve_memory`` lines)."""
+    out: list = []
+
+    def target() -> None:
+        try:
+            out.append(("ok", fn(*args)))
+        except BaseException as e:  # noqa: BLE001 - re-raised on the caller's thread
+            out.append(("error", e))
+
+    thread = threading.Thread(target=target, name="chip-smoke-client")
+    thread.start()
+    thread.join()
+    kind, value = out[0]
+    if kind == "error":
+        raise value
+    return value
+
+
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {what}")
@@ -619,6 +717,17 @@ def tf32_mode(enabled: bool):
     """TF32 for f32 products and cuDNN's convolutions on or off in the block."""
     old = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = enabled
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
+
+
+@contextlib.contextmanager
+def kept_tf32():
+    """Both TF32 flags as they were before the block (a serve's build sets
+    them for its process, ``builder.full_f32``)."""
+    old = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     try:
         yield
     finally:
@@ -807,7 +916,7 @@ def attention_phase(dev: torch.device) -> dict:
     dup_rng = np.random.default_rng(2)
     rows, max_err, headline = [], 0.0, None
     for name, h, kv, hd, t, tails in ATTN_SHAPES:
-        for b in ATTN_ROWS:
+        for b in ATTN_SHAPE_ROWS.get(name, ATTN_ROWS):
             cache_bytes = 2 * b * kv * t * hd * 2
             copies = max(2, -(-2 * L2_BYTES // cache_bytes))
             caches = [(torch.randn(b, kv, t, hd, generator=gen, device=dev).to(torch.bfloat16),
@@ -1110,36 +1219,130 @@ def _all_reduce_us(tp, dev: torch.device, calls: int = 200) -> float:
 
 
 def _tp_logits(dev: torch.device, tp) -> dict:
-    """SmolLM2-1.7B drawn as the serve draws it (``registry._random_init``,
-    seed 0 on the card), int8, a 64-token prompt's prefill logits (f32) at
-    its last position: over the ranks of *tp* on their shards, and on rank 0
-    also of the whole tree on its own ("one")."""
+    """Prefill logits (f32) of a 64-token prompt at its last position, over
+    the ranks of *tp* on their shards and, on rank 0, also of the whole tree
+    on its own ("one"): SmolLM2-1.7B drawn as the serve draws it
+    (``registry._random_init``, seed 0 on the card) in int8 and in int8-dyn
+    (64 rows: the W8A8 kernel, the rows' absmax reduced across the ranks),
+    and SmolLM2-360M in bf16, whose 15/5 heads two ranks do not divide
+    (each keeps the attention block whole)."""
     from s2s_tpu_torch.llm.local_backend import lm_config
     from s2s_tpu_torch.models import decoder_lm
     from s2s_tpu_torch.ops.quant import quantize_mode
     from s2s_tpu_torch.parallel import batched_decode as bd
     from s2s_tpu_torch.registry import _random_init, _tp_shard_lm
 
-    cfg = lm_config("smollm2-1.7b")
-    whole = quantize_mode(_random_init(decoder_lm.init_params, cfg, dev, "tp_parity logits"), "int8")
-    prompt = torch.from_numpy(np.random.default_rng(8).integers(1, cfg.vocab_size, (1, 64)).astype(np.int32))
-
-    def logits(params, group):
+    def logits(params, cfg, group, prompt):
         row = bd._slot_row(bd.init_multi_state(cfg, 1, max_t=128, device=dev, tp=group), 0)
         x = decoder_lm.embed_tokens(params["embed"], prompt.to(dev), cfg, group).to(cfg.dtype)
         hidden = bd._prefill_row_caches(params, cfg, x, row, group)
         return decoder_lm._logits(hidden[:, -1:], params, cfg, group)[0, 0].cpu()
 
-    out = {"tp": logits(_tp_shard_lm(whole, cfg, tp, "--llm_model_size smollm2-1.7b"), tp)}
-    if tp.rank == 0:
-        out["one"] = logits(whole, None)
+    out = {}
+    for size, modes in (("smollm2-1.7b", ("int8", "int8-dyn")), ("smollm2-360m", (None,))):
+        cfg = lm_config(size)
+        drawn = _random_init(decoder_lm.init_params, cfg, dev, "tp_parity logits")
+        prompt = torch.from_numpy(np.random.default_rng(8).integers(1, cfg.vocab_size, (1, 64)).astype(np.int32))
+        for mode in modes:
+            whole = quantize_mode(drawn, mode)
+            got = {"tp": logits(_tp_shard_lm(whole, cfg, tp, f"--llm_model_size {size}"), cfg, tp, prompt)}
+            if tp.rank == 0:
+                got["one"] = logits(whole, cfg, None, prompt)
+            out[mode or size] = got
+            del whole
+        del drawn
     return out
+
+
+def _tp_w8a8_layer(dev: torch.device, tp) -> dict | None:
+    """One row-parallel W8A8 projection at TP_DYN_LAYER's shape (SmolLM2-
+    1.7B's w_down), its weight drawn (seed 10 on *dev*) and quantized whole,
+    x bf16 rows from the same seed (every third row's maxima in the last
+    rank's block): over the ranks of *tp* (each its block
+    of K, the rows' absmax reduced across the ranks: ``quantized_linear_dyn``
+    with the group) and with each rank's own absmax; on rank 0 also one
+    rank's product ("one").  Rank 0 returns the three (bf16, on the CPU)."""
+    from s2s_tpu_torch.models.common import P
+    from s2s_tpu_torch.ops.int8_matmul import int8_matmul_dyn_reference
+    from s2s_tpu_torch.ops.quant import DynQuantWeight, quantize_weight, quantized_linear_dyn
+    from s2s_tpu_torch.parallel.mesh import local_shard
+
+    b, k, n = TP_DYN_LAYER
+    gen = torch.Generator(device=dev).manual_seed(10)
+    w = (torch.randn(k, n, generator=gen, device=dev) * k ** -0.5).to(torch.bfloat16)
+    x = (3 * torch.randn(b, k, generator=gen, device=dev)).to(torch.bfloat16)
+    x[::3, k - k // tp.size :] *= 8  # these rows' maxima lie in the last rank's block
+    whole = DynQuantWeight(*quantize_weight(w))
+    shard = local_shard(whole, P("model", None), tp.rank, tp.size)
+    width = k // tp.size
+    xr = x[:, tp.rank * width : (tp.rank + 1) * width].contiguous()
+    out = {"reduced": tp.all_reduce(quantized_linear_dyn(xr, shard, group=tp)).cpu(),
+           "own": tp.all_reduce(quantized_linear_dyn(xr, shard)).cpu()}
+    if tp.rank:
+        return None
+    out["one"] = quantized_linear_dyn(x, whole).cpu()
+    # the plain version of each rank's call, given the whole rows' absmax, summed in f32 as the ranks sum
+    amax = x.float().abs().amax(dim=1)
+    parts = [int8_matmul_dyn_reference(x[:, r * width : (r + 1) * width], *local_shard(whole, P("model", None), r,
+                                                                                      tp.size), amax).float()
+             for r in range(tp.size)]
+    out["expected"] = sum(parts[1:], parts[0]).to(torch.bfloat16).cpu()
+    return out
+
+
+class _TokenIds:
+    """The tokenizer of ``_tp_sampled``'s handler: its text is the token ids
+    (``"5,17,"``), so a reply gives back its tokens exactly; no EOS."""
+
+    eos_id = -1
+
+    def encode(self, text: str) -> list[int]:
+        return list(text.encode())
+
+    def decode(self, ids) -> str:
+        return "".join(f"{int(i)}," for i in ids)
+
+
+def _tp_sampled(dev: torch.device, tp) -> list[int] | None:
+    """TP_SAMPLED_TOKENS tokens of sampled decode (TP_SAMPLED_TEMPERATURE,
+    the handler's generator seeded 0) of the tiny f32 LM (seed 9 on *dev*)
+    through the local LLM handler: with *tp*, on the batched engine's
+    single-session programs over the ranks (rank 0 runs the handler and
+    returns the tokens, the others follow and return None); without, on one
+    rank's whole tree."""
+    import queue
+
+    from s2s_tpu_torch.llm.local_backend import LocalTorchLLMHandler, lm_config
+    from s2s_tpu_torch.models import decoder_lm
+    from s2s_tpu_torch.parallel.session_scheduler import BatchedLMScheduler
+    from s2s_tpu_torch.registry import _tp_shard_lm
+
+    cfg = lm_config("tiny")
+    params = decoder_lm.init_params(cfg, torch.Generator(device=dev).manual_seed(9), dev)
+    setup = dict(device=dev, tokenizer=_TokenIds(), gen_kwargs={"temperature": TP_SAMPLED_TEMPERATURE})
+    engine = None
+    if tp is None:
+        setup["params"] = params
+    else:
+        engine = BatchedLMScheduler(_tp_shard_lm(params, cfg, tp, "the tp_parity sampled LM"), cfg, n_slots=2, tp=tp)
+        if tp.rank:
+            engine.follow()
+            return None
+        setup["shared_lm"] = engine
+    handler = LocalTorchLLMHandler(threading.Event(), queue.Queue(), queue.Queue(), setup_kwargs=setup)
+    try:
+        text = "".join(handler._jax_generate([{"role": "user", "content": "hi"}], max_new=TP_SAMPLED_TOKENS))
+    finally:
+        if engine is not None:
+            engine.stop_followers()
+    return [int(t) for t in text.split(",") if t]
 
 
 def tp_parity_rank(rank: int, store, layout) -> dict:
     """One rank of ``tp_parity``: the tiny programs over the ranks, the
-    full-width LM's prefill logits (``_tp_logits``), then the transport's
-    all_reduce time; rank 0 returns them."""
+    full-width LMs' prefill logits (``_tp_logits``), the sampled decode
+    (``_tp_sampled``), then the transport's all_reduce time; rank 0 returns
+    them."""
     from s2s_tpu_torch.parallel.mesh import TPRuntime
 
     runtime = TPRuntime(rank, layout, store)
@@ -1147,6 +1350,8 @@ def tp_parity_rank(rank: int, store, layout) -> dict:
         out = _tp_tiny_programs(runtime.device, runtime.group("lm"), runtime.group("tts"))
         out["collectives"] = {name: g.collectives for name, g in runtime.groups.items()}
         out["logits"] = _tp_logits(runtime.device, runtime.group("lm"))
+        out["w8a8_layer"] = _tp_w8a8_layer(runtime.device, runtime.group("lm"))
+        out["sampled"] = _tp_sampled(runtime.device, runtime.group("lm"))
         out["all_reduce_us"] = _all_reduce_us(runtime.group("lm"), runtime.device)
     finally:
         runtime.shutdown()
@@ -1157,13 +1362,21 @@ def tp_parity_phase(dev: torch.device) -> dict:
     """``tp_parity``: the tiny f32 LM and talker programs over TP_RANKS
     ranks, both on this card through gloo (``TP_REHEARSAL``), against the
     same programs on one rank of the card: LM tokens equal, talker codes
-    equal and audio within TP_TALKER_ATOL; SmolLM2-1.7B's int8 prefill
-    logits over the ranks against one rank within TP_LOGITS_REL of
-    max|one|; each transport's all_reduce time.  With two or more cards, the
+    equal and audio within TP_TALKER_ATOL; prefill logits over the ranks
+    against one rank, relative to max|one|: SmolLM2-1.7B's int8 within
+    TP_LOGITS_REL, its int8-dyn read with the argmax equal (unless one
+    rank's top two logits lie closer than the measured error: a tie that
+    the error decides), SmolLM2-360M's (attention whole on each rank) within
+    TP_360M_LOGITS_REL; one W8A8 row-parallel projection (TP_DYN_LAYER) over
+    the ranks bit-equal to the plain version given the rows' absmax and
+    within TP_DYN_LAYER_ULPS of one rank's; the sampled tokens
+    equal to one
+    rank's; each transport's all_reduce time.  With two or more cards, the
     same over NCCL on two cards."""
     from s2s_tpu_torch.ops import decode_attention as da
 
     ref = _tp_tiny_programs(dev, None, None)
+    ref_sampled = _tp_sampled(dev, None)
     layouts = [TP_REHEARSAL] + ([TP_NCCL] if torch.cuda.device_count() >= TP_RANKS else [])
     result = {}
     for devices, transport in layouts:
@@ -1178,15 +1391,47 @@ def tp_parity_phase(dev: torch.device) -> dict:
               f"{where}: talker audio |d| {err} > {TP_TALKER_ATOL}")
         launches = da.concat_attention.launches - before
         check(launches > 0, f"{where}: rank 0 launched no decode attention")
-        tp_logits, one = got["logits"]["tp"], got["logits"]["one"]
-        rel = float((tp_logits - one).abs().max() / one.abs().max())
-        check(bool(torch.isfinite(tp_logits).all()) and rel <= TP_LOGITS_REL,
-              f"{where}: SmolLM2-1.7B prefill logits over the ranks vs one: rel {rel} > {TP_LOGITS_REL}")
+        readings = {}
+        one_int8 = got["logits"]["int8"]["one"]
+        for key, what, rtol in (("int8", "SmolLM2-1.7B int8", TP_LOGITS_REL),
+                                ("int8-dyn", "SmolLM2-1.7B int8-dyn", None),
+                                ("smollm2-360m", "SmolLM2-360M", TP_360M_LOGITS_REL)):
+            tp_logits, one = got["logits"][key]["tp"], got["logits"][key]["one"]
+            rel = float((tp_logits - one).abs().max() / one.abs().max())
+            check(bool(torch.isfinite(tp_logits).all()) and (rtol is None or rel <= rtol),
+                  f"{where}: {what} prefill logits over the ranks vs one: rel {rel} > {rtol}")
+            top2 = one.topk(2).values
+            gap = float(top2[0] - top2[1])
+            argmax_equal = int(tp_logits.argmax()) == int(one.argmax())
+            if key == "int8-dyn":
+                check(argmax_equal or gap <= float((tp_logits - one).abs().max()),
+                      f"{where}: {what} argmax {int(tp_logits.argmax())} over the ranks vs {int(one.argmax())}, "
+                      f"one rank's top-two gap {gap}")
+            readings[key] = {"max_rel_err": rel, "rtol": rtol, "argmax_equal": argmax_equal, "top2_gap": gap}
+        readings["int8-dyn"]["one_rank_int8_dyn_vs_int8_rel"] = float(
+            (got["logits"]["int8-dyn"]["one"] - one_int8).abs().max() / one_int8.abs().max())
+        layer = got["w8a8_layer"]
+        ulp = bf16_ulp(float(layer["one"].float().abs().max()))
+        errs = {k: float((layer[k].float() - layer["one"].float()).abs().max()) for k in ("reduced", "own")}
+        check(torch.equal(layer["reduced"], layer["expected"]),
+              f"{where}: a W8A8 row-parallel projection over the ranks is not the plain version's given the rows' "
+              f"absmax (own absmax equal: {torch.equal(layer['own'], layer['expected'])})")
+        check(errs["reduced"] <= TP_DYN_LAYER_ULPS * ulp,
+              f"{where}: a W8A8 row-parallel projection over the ranks vs one: |d| {errs['reduced']} > "
+              f"{TP_DYN_LAYER_ULPS} ulps ({ulp})")
+        readings["w8a8_layer"] = {"shape": list(TP_DYN_LAYER), "bitwise_equal_plain_given_absmax": True,
+                                  "own_absmax_bitwise_equal": torch.equal(layer["own"], layer["expected"]),
+                                  "max_abs_err": errs["reduced"], "bound": TP_DYN_LAYER_ULPS * ulp,
+                                  "own_absmax_max_abs_err": errs["own"]}
+        check(got["sampled"] == ref_sampled and len(ref_sampled) == TP_SAMPLED_TOKENS,
+              f"{where}: sampled tokens {got['sampled']} vs {ref_sampled} on one rank")
         result[transport] = {"devices": list(devices), "lm_tokens": got["lm_tokens"].tolist(),
                              "talker_audio_max_abs_err": err, "atol": TP_TALKER_ATOL,
                              "rank0_decode_attention_launches": launches, "collectives": got["collectives"],
-                             "prefill_logits": {"max_rel_err": rel, "rtol": TP_LOGITS_REL,
-                                                "argmax_equal": int(tp_logits.argmax()) == int(one.argmax())},
+                             "prefill_logits": readings["int8"], "prefill_logits_int8_dyn": readings["int8-dyn"],
+                             "prefill_logits_smollm2_360m": readings["smollm2-360m"],
+                             "w8a8_row_parallel_layer": readings["w8a8_layer"],
+                             "sampled_tokens": got["sampled"], "sampled_equal_one_rank": True,
                              "all_reduce_us": got["all_reduce_us"], "block": list(TP_BLOCK)}
     phase("tp_parity", **result)
     return result
@@ -1300,8 +1545,49 @@ def int8_dyn_phase(dev: torch.device, library: str) -> dict:
                 headline = row
         del qs
     check(headline is not None, "int8_matmul_dyn headline shape measured")
+
+    # a row-parallel shard's call: x one rank's half of K, the rows' absmax over both halves given
+    tp_rows = []
+    for k, n in TP_DYN_SHAPES:
+        copies = max(2, -(-2 * L2_BYTES // (k * n)))
+        qs = [torch.randint(-127, 128, (k, n), generator=gen, device=dev, dtype=torch.int16).to(torch.int8)
+              for _ in range(copies)]
+        scale = torch.rand(n, generator=gen, device=dev) * 0.01 + 1e-4
+        for b in TP_DYN_ROWS:
+            x2 = (3 * torch.randn(b, 2 * k, generator=gen, device=dev)).to(torch.bfloat16)
+            x2[::3, k:] *= 8  # the other rank's half holds these rows' maxima
+            row_amax = x2.float().abs().amax(dim=1)
+            x = x2[:, :k].contiguous()
+            got = mm.int8_matmul_dyn(x, qs[0], scale, row_amax)
+            want = mm.int8_matmul_dyn_reference(x, qs[0], scale, row_amax)
+            own = mm.int8_matmul_dyn_reference(x, qs[0], scale)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            check(got.shape == want.shape and torch.equal(got, want),
+                  f"int8_matmul_dyn B={b} K={k} N={n} with row_amax: not bit-equal to the plain version (|d|={err})")
+            check(not torch.equal(own, want), f"int8_matmul_dyn B={b} K={k} N={n}: row_amax changed no row")
+
+            def plain(i):
+                mm.int8_matmul_dyn_reference(x, qs[i % copies], scale, row_amax)
+
+            def kernel(i):
+                mm.int8_matmul_dyn(x, qs[i % copies], scale, row_amax)
+
+            def kernel_own(i):
+                mm.int8_matmul_dyn(x, qs[i % copies], scale)
+
+            times = [device_ms(f, 2 * copies) for f in (plain, kernel, kernel_own, kernel_own, kernel, plain)]
+            ms, plain_ms, own_ms = (times[1] + times[4]) / 2, (times[0] + times[5]) / 2, (times[2] + times[3]) / 2
+            bound_ms, bound_by = gemv_bound(b, k, n, k * n + 4 * b, INT8_OPS)
+            row = dict(B=b, K=k, N=n, row_amax=True, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       own_absmax_ms=own_ms, bound_ms=bound_ms, bound_by=bound_by,
+                       library_ms=_int_mm_ms(x, qs, scale) if b > 16 else None,
+                       plan=wo.device_plan(b, k, n, 1, dev, wo.W8A8).describe())
+            phase("int8_matmul_dyn_row_amax", **row)
+            tp_rows.append(row)
+        del qs
     return {"max_abs_err": 0.0, **{key: headline[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                                   "library_ms")}, "rows": rows}
+                                                                   "library_ms")}, "rows": rows, "tp_rows": tp_rows}
 
 
 def w8a8_microbench_phase(dev: torch.device, dyn_rows: list[dict]) -> dict:
@@ -1492,7 +1778,7 @@ def quant_serve_phase(dev: torch.device, card: list[str]) -> dict[str, int]:
         for fn in _by_rows_counters():
             fn.rows.clear()
         t0 = time.perf_counter()
-        rounds = asyncio.run(_concurrent_text_turns(url, QUANT_SESSIONS))
+        rounds = run_client(_concurrent_text_turns(url, QUANT_SESSIONS))
         round_s = time.perf_counter() - t0
         torch.cuda.synchronize()
         launches = {name: fn.launches for name, fn in counters.items()}
@@ -1616,13 +1902,13 @@ def serve_phase(dev: torch.device) -> dict[str, int]:
         check(server.started.wait(60), "server started")
         url = f"ws://127.0.0.1:{server.bound_port}/v1/realtime"
         t0 = time.perf_counter()
-        asyncio.run(_session(url, _text_turn("Warm up, please."), _response_done, 600))
+        run_client(_session(url, _text_turn("Warm up, please."), _response_done, 600))
         warmup_s = time.perf_counter() - t0
 
         with counted_transcriptions() as stt:
             mm.int8_matmul.launches = log_mel.parakeet_log_mel.launches = 0  # count the measured turns only
-            text = asyncio.run(_session(url, _text_turn(TEXT), _response_done, 600))
-            audio = asyncio.run(_session(url, _audio_turn(), _transcribed_and_settled, 600))
+            text = run_client(_session(url, _text_turn(TEXT), _response_done, 600))
+            audio = run_client(_session(url, _audio_turn(), _transcribed_and_settled, 600))
             torch.cuda.synchronize()
             launches, mel_launches = mm.int8_matmul.launches, log_mel.parakeet_log_mel.launches
         talk_phase(url, server.pool)
@@ -1659,7 +1945,7 @@ def _voice_turns(url: str, what: str, need_words: bool) -> tuple[list | None, li
     transcribed, with a non-empty transcript if *need_words*."""
     attempts = []
     for tone in VOICE_TONES_HZ:
-        events = asyncio.run(_session(url, _audio_turn(tone), _reply_or_quiet, 300))
+        events = run_client(_session(url, _audio_turn(tone), _reply_or_quiet, 300))
         transcripts = _transcripts(events)
         check(len(transcripts) >= 1 and (not need_words or transcripts[0][1].strip() != ""),
               f"{what} voice turn at {tone} Hz: a {'non-empty ' if need_words else ''}transcription ({transcripts})")
@@ -1727,9 +2013,9 @@ def batched_serve_phase(dev: torch.device, card: list[str]) -> dict[str, int]:
             mm.int8_matmul.rows.clear()
             m4.int4_matmul.rows.clear()
             t0 = time.perf_counter()
-            rounds = asyncio.run(_concurrent_text_turns(url, SESSIONS))
+            rounds = run_client(_concurrent_text_turns(url, SESSIONS))
             round_s = time.perf_counter() - t0
-            audio = asyncio.run(_session(url, _audio_turn(), _transcribed_and_settled, 600))
+            audio = run_client(_session(url, _audio_turn(), _transcribed_and_settled, 600))
             torch.cuda.synchronize()
             launches = {"int8_matmul": mm.int8_matmul.launches, "decode_attention": da.concat_attention.launches}
             mel_launches = log_mel.parakeet_log_mel.launches
@@ -1756,14 +2042,16 @@ def batched_serve_phase(dev: torch.device, card: list[str]) -> dict[str, int]:
 
 
 def tp_serve_phase(dev: torch.device, card: list[str], parity: dict) -> dict[str, int]:
-    """``tp_serve``: the 4-session batched serve at full width and depth with
+    """``tp_serve``: the 4-session batched serve at full width (depth cut by
+    ``SERVE_DEPTHS`` on both ranks) with
     ``--tts_quantize int8 --model_parallel 2`` (``TP_SERVE_FLAGS``), both
     ranks on this card through gloo (``TP_REHEARSAL``, a rehearsal: not TP's
     speed on two cards).  On a one-card machine ``serve --model_parallel 2``
     on its own must first raise the device-count error.  Then the serve's
     build (its warm-up mirrored on the follower), one concurrent round of
-    four text turns, each answered with audio and response.done, and an
-    audio turn.  The int8 and decode-attention kernels' launches on each
+    four text turns, each answered with audio and response.done, and voice
+    turns until one is answered (``_voice_turns``).  The int8 and
+    decode-attention kernels' launches on each
     rank from the build to the end (each > 0, equal across ranks), each
     rank's allocated bytes after a collection (the leader's also above
     what it held before the build), and each engine's replicated state equal on
@@ -1803,9 +2091,10 @@ def tp_serve_phase(dev: torch.device, card: list[str], parity: dict) -> dict[str
         check(server.started.wait(60), "server started")
         url = f"ws://127.0.0.1:{server.bound_port}/v1/realtime"
         t0 = time.perf_counter()
-        rounds = asyncio.run(_concurrent_text_turns(url, SESSIONS))
+        rounds = run_client(_concurrent_text_turns(url, SESSIONS))
         round_s = time.perf_counter() - t0
-        audio = asyncio.run(_session(url, _audio_turn(), _transcribed_and_settled, 600))
+        # tones until one is answered: a random-init reply with nothing to speak sends no response event
+        audio, attempts = _voice_turns(url, "tp_serve", need_words=False)
     finally:
         stop.set()
         manager.stop()
@@ -1818,6 +2107,7 @@ def tp_serve_phase(dev: torch.device, card: list[str], parity: dict) -> dict[str
     for i, events in enumerate(rounds):
         pcm, done = _reply(events, f"tp_serve text turn {i}")
         sessions.append({"ttfa_s": _first_audio_s(events), "turn_s": done, "audio_seconds": pcm.size / 24_000})
+    check(audio is not None, f"tp_serve: a voice turn answered with audio: {attempts}")
     voice = _voice_summary(audio)
     followers = [runtime.follower_reports.get(rank) for rank in range(1, runtime.size)]
     check(all(r is not None for r in followers), "every follower reported its launches and memory")
@@ -1834,7 +2124,8 @@ def tp_serve_phase(dev: torch.device, card: list[str], parity: dict) -> dict[str
               "flags": TP_SERVE_FLAGS[len(BATCHED_FLAGS):], "refused_on_one_card": refused,
               "prefill_logits": rehearsal["prefill_logits"], "all_reduce_us": rehearsal["all_reduce_us"],
               "block": list(TP_BLOCK),
-              "build_s": build_s, "round_s": round_s, "text_turns": sessions, "voice_turn": voice,
+              "build_s": build_s, "round_s": round_s, "text_turns": sessions, "voice_attempts": attempts,
+              "voice_turn": voice,
               "launches_by_rank": [r["launches"] for r in ranks],
               "allocated_bytes_by_rank": [r.get("allocated_bytes") for r in ranks],
               "leader_allocated_before_bytes": before,
@@ -1846,6 +2137,83 @@ def tp_serve_phase(dev: torch.device, card: list[str], parity: dict) -> dict[str
     return {name: [r["launches"][name] for r in ranks] for name in ("int8_matmul", "decode_attention")}
 
 
+def tp_quant_serve_phase(dev: torch.device, card: list[str]) -> dict[str, list[int]]:
+    """``tp_quant_serve``: the 8-session quantized serve over two ranks
+    (``TP_QUANT_SERVE_FLAGS``: int8-dyn LM and talker, ``--model_parallel
+    2``), full width and depth, both ranks on this card through gloo
+    (``TP_REHEARSAL``, a rehearsal as ``tp_serve`` is): build (engines warmed
+    and mirrored), one concurrent round of eight text turns, each answered
+    with audio and response.done.  The W8A8 kernel's launches on each rank
+    from the build to the end, by the rows of the call (> 0, equal across
+    ranks: the LM's and the talker's 8-row steady steps and the prompt
+    buckets, each quantizing its rows by their absmax reduced across the
+    ranks), the other kernels' launches, each rank's allocated bytes and each
+    engine's replicated state equal on every rank.  Returns each kernel's
+    launches by rank."""
+    from s2s_tpu_torch import builder, cli
+    from s2s_tpu_torch.parallel.mesh import TPLayout, rank_report
+    from s2s_tpu_torch.registry import GLOBAL_MODEL_CACHE
+
+    counters = _launch_counters()
+    for fn in counters.values():  # from the build: the follower counts from its start
+        fn.launches = 0
+    for fn in _by_rows_counters():
+        fn.rows.clear()
+    stop = threading.Event()
+    t0 = time.perf_counter()
+    manager, server, _ = cli.build_from_argv(["--device", "cuda", *TP_QUANT_SERVE_FLAGS], stop,
+                                             tp_layout=TPLayout(*TP_REHEARSAL))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    handler = builder.tp_handler_of(manager)
+    check(handler is not None, "the serve holds a tensor-parallel runtime")
+    runtime = handler.runtime
+    manager.start()
+    try:
+        check(server.started.wait(60), "server started")
+        url = f"ws://127.0.0.1:{server.bound_port}/v1/realtime"
+        t0 = time.perf_counter()
+        rounds = run_client(_concurrent_text_turns(url, QUANT_SESSIONS))
+        round_s = time.perf_counter() - t0
+    finally:
+        stop.set()
+        manager.stop()
+        handler.close()
+        leader = rank_report(dev)
+        consistent = runtime.consistent()
+        GLOBAL_MODEL_CACHE.clear()
+
+    sessions = []
+    for i, events in enumerate(rounds):
+        pcm, done = _reply(events, f"tp_quant_serve text turn {i}")
+        sessions.append({"ttfa_s": _first_audio_s(events), "turn_s": done, "audio_seconds": pcm.size / 24_000})
+    followers = [runtime.follower_reports.get(rank) for rank in range(1, runtime.size)]
+    check(all(r is not None for r in followers), "every follower reported its launches and memory")
+    ranks = [leader, *followers]
+    dyn_rows = [r["launches_by_rows"]["int8_matmul_dyn"] for r in ranks]
+    check(all(sum(rows.values()) > 0 for rows in dyn_rows) and all(rows == dyn_rows[0] for rows in dyn_rows),
+          f"tp_quant_serve: W8A8 launches by rows on each rank {dyn_rows}")
+    check(all(int(rows) >= 8 for rows in dyn_rows[0]), f"tp_quant_serve: W8A8 below 8 rows {dyn_rows[0]}")
+    for name in ("int8_matmul", "decode_attention"):
+        counts = [r["launches"][name] for r in ranks]
+        check(all(c > 0 for c in counts) and len(set(counts)) == 1, f"tp_quant_serve {name} launches by rank {counts}")
+    check(all(consistent.values()) and set(consistent) == {"lm", "tts"},
+          f"tp_quant_serve: the followers' replicated state equals the leader's: {consistent}")
+    shared = len(set(runtime.layout.devices)) < runtime.size
+    phase("tp_quant_serve", card=card,
+          rehearsal="ranks share a card: not tensor parallelism's speed on several" if shared else None,
+          transport=runtime.layout.transport, devices=list(runtime.layout.devices),
+          flags=TP_QUANT_SERVE_FLAGS[len(BATCHED_FLAGS):], sessions=QUANT_SESSIONS, build_s=build_s,
+          round_s=round_s, text_turns=sessions, launches_by_rank=[r["launches"] for r in ranks],
+          w8a8_launches_by_rows_by_rank=dyn_rows,
+          int8_launches_by_rows_by_rank=[r["launches_by_rows"]["int8_matmul"] for r in ranks],
+          allocated_bytes_by_rank=[r.get("allocated_bytes") for r in ranks],
+          max_allocated_bytes_by_rank=[r.get("max_allocated_bytes") for r in ranks],
+          replicated_state_equal=consistent)
+    return {name: [r["launches"][name] for r in ranks] for name in ("int8_matmul_dyn", "int8_matmul",
+                                                                   "decode_attention")}
+
+
 def traced_round(url: str) -> dict:
     """One more concurrent round under ``torch.profiler``, device activity
     only.  The busy share is over the span from the round's first kernel to
@@ -1853,7 +2221,7 @@ def traced_round(url: str) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        rounds = asyncio.run(_concurrent_text_turns(url, SESSIONS))
+        rounds = run_client(_concurrent_text_turns(url, SESSIONS))
         torch.cuda.synchronize()
     replies = [_reply(events, f"traced turn {i}") for i, events in enumerate(rounds)]
     device = [e for e in prof.profiler.kineto_results.events()
@@ -2663,7 +3031,7 @@ def whisper_serve_phase(dev: torch.device, card: list[str]) -> dict[str, int]:
             encodes.update(whisper=0, smart_turn=0)
             predictions.clear()
             lines.records.clear()
-            text = asyncio.run(_session(url, _text_turn(TEXT), _response_done, 600))
+            text = run_client(_session(url, _text_turn(TEXT), _response_done, 600))
             audio, attempts = _voice_turns(url, "whisper serve", need_words=True)
             torch.cuda.synchronize()
             launches = {name: fn.launches for name, fn in counters.items()}
@@ -2797,7 +3165,7 @@ def _silero_chunks(rng: np.random.Generator, tick: int, slots, n: int) -> np.nda
 
 def silero_phase(dev: torch.device, card: list[str]) -> dict:
     """``BatchedSileroVAD(max_slots=16)`` on the card (random weights from
-    seed 0, under torch's defaults, as the serve runs it) against the plain
+    seed 0, under torch's defaults: its step is f32 under either) against the plain
     masked step on the CPU with the same parameters over ``SILERO_TICKS``
     ticks; slot isolation and ``reset_slot``; the single-session
     ``SileroVAD`` on the card against the CPU; then one tick's device time
@@ -2950,8 +3318,9 @@ def talk_phase(url: str, pool) -> dict:
         while any(unit.session is not None for unit in pool) and time.perf_counter() < deadline:
             time.sleep(0.25)
         t0 = time.perf_counter()
-        client.run_realtime_audio_client(SimpleNamespace(url=url, input_wav=str(in_wav), output_wav=str(out_wav),
-                                                         instructions=None, voice=None, sample_rate=16_000))
+        on_own_thread(client.run_realtime_audio_client,
+                      SimpleNamespace(url=url, input_wav=str(in_wav), output_wav=str(out_wav), instructions=None,
+                                      voice=None, sample_rate=16_000))
         seconds = time.perf_counter() - t0
         check(out_wav.exists(), "talk: the client wrote the reply's audio")
         with wave.open(str(out_wav)) as w:
@@ -3028,14 +3397,14 @@ def deployment_serve_phase(dev: torch.device, card: list[str]) -> dict[str, int]
             check(server.started.wait(60), "server started")
             url = f"ws://127.0.0.1:{server.bound_port}/v1/realtime"
             mm.int8_matmul.launches = da.concat_attention.launches = 0
-            texts = [asyncio.run(_session(url, _text_turn(f"{TEXT} Turn {i}.", DEPLOYMENT_REPLY), _response_done, 600))
+            texts = [run_client(_session(url, _text_turn(f"{TEXT} Turn {i}.", DEPLOYMENT_REPLY), _response_done, 600))
                      for i in range(2)]
             ticks.clear()
 
             def all_ticked(events, now):
                 return len(ticks) >= want_ticks and now > tone_s + silence_s + 1.0
 
-            audio = asyncio.run(_session(url, appends, all_ticked, 120))
+            audio = run_client(_session(url, appends, all_ticked, 120))
             time.sleep(1.0)  # any tick past the count would show here
             torch.cuda.synchronize()
             launches = {"int8_matmul": mm.int8_matmul.launches, "decode_attention": da.concat_attention.launches}
@@ -3591,11 +3960,20 @@ def served_depth(lm_layers: int | None, talker_layers: int | None, cp_layers: in
     talker and code predictor with *talker_layers* and *cp_layers* (None:
     whole) by the serves built in the block: ``--llm_model_size
     smollm2-1.7b``'s ``lm_config`` and ``--tts_model_size 1.7b``'s
-    configuration, cut in depth, widths kept."""
+    configuration, cut in depth, widths kept.  A tensor-parallel serve's
+    followers, started in the block as processes of their own, run through
+    ``follower_at_depth`` with the same depths."""
     from s2s_tpu_torch.llm import local_backend
     from s2s_tpu_torch.models import qwen3_tts
 
-    real_lm, real_tts = local_backend.lm_config, qwen3_tts.CONFIGS["1.7b"]
+    real_lm, real_tts, real_popen = local_backend.lm_config, qwen3_tts.CONFIGS["1.7b"], subprocess.Popen
+    depths = (lm_layers, talker_layers, cp_layers)
+
+    def popen(cmd, *args, **kwargs):
+        if list(cmd[1:4]) == ["-m", "s2s_tpu_torch.cli", "tp-follower"]:
+            cmd = [cmd[0], "-c", f"import sys, chip_smoke; chip_smoke.follower_at_depth({depths!r}, sys.argv[1:])",
+                   *cmd[4:]]
+        return real_popen(cmd, *args, **kwargs)
 
     def lm_config(model_size: str):
         cfg = real_lm(model_size)
@@ -3607,11 +3985,22 @@ def served_depth(lm_layers: int | None, talker_layers: int | None, cp_layers: in
             cfg = dataclasses.replace(cfg, lm=dataclasses.replace(cfg.lm, n_layers=talker_layers))
         return dataclasses.replace(cfg, cp=dataclasses.replace(cfg.cp, n_layers=cp_layers)) if cp_layers else cfg
 
-    local_backend.lm_config, qwen3_tts.CONFIGS["1.7b"] = lm_config, tts_config
+    local_backend.lm_config, qwen3_tts.CONFIGS["1.7b"], subprocess.Popen = lm_config, tts_config, popen
     try:
         yield
     finally:
-        local_backend.lm_config, qwen3_tts.CONFIGS["1.7b"] = real_lm, real_tts
+        local_backend.lm_config, qwen3_tts.CONFIGS["1.7b"], subprocess.Popen = real_lm, real_tts, real_popen
+
+
+def follower_at_depth(depths: tuple, argv: list[str]) -> None:
+    """A tensor-parallel follower (``s2s_tpu_torch.cli tp-follower`` with
+    *argv*) whose models are built at ``served_depth(*depths)``, as its
+    leader's are."""
+    from s2s_tpu_torch import cli
+
+    with served_depth(*depths):
+        code = cli.run_follower(argv)
+    sys.exit(code)
 
 
 def audible_pocket(model):
@@ -3625,7 +4014,7 @@ def audible_pocket(model):
 def tts_serve_phase(dev: torch.device, card: list[str], tts: str) -> dict[str, int]:
     """The 4-session batched cascade with ``--tts kokoro``, ``facebookMMS``,
     ``pocket`` or ``chatTTS`` (``tts_flags(BATCHED_FLAGS, tts)``; full
-    width, random weights from seed 0, torch's defaults; Pocket's and
+    width, random weights from seed 0, TF32 off as the builder sets it; Pocket's and
     ChatTTS's models at the depths of ``served_tts_model``, placed in the
     model cache under the factories' keys, Pocket's with ``audible_pocket``): build (the LM and Parakeet
     engines warmed), every count set to 0, four concurrent text turns (one a
@@ -3681,7 +4070,7 @@ def tts_serve_phase(dev: torch.device, card: list[str], tts: str) -> dict[str, i
                     fn.launches = 0
                 synths.clear()
                 t0 = time.perf_counter()
-                rounds = asyncio.run(_concurrent_text_turns(url, SESSIONS))
+                rounds = run_client(_concurrent_text_turns(url, SESSIONS))
                 round_s = time.perf_counter() - t0
                 text_synths = list(synths)
                 audio, attempts = _voice_turns(url, f"{tts} serve", need_words=False)
@@ -3912,7 +4301,7 @@ def _answered_turn(url: str, turns, counts) -> tuple[list | None, list[dict]]:
     the TTS has nothing to say)."""
     attempts = []
     for label, actions in turns:
-        events = asyncio.run(_session(url, actions, _response_done, 600))
+        events = run_client(_session(url, actions, _response_done, 600))
         replied = "response.output_audio.delta" in _types(events)
         attempts.append({"turn": label, "replied": replied, "reply": _reply_text(events)[:60], "counts": counts()})
         if replied:
@@ -4020,7 +4409,7 @@ def paraformer_vlm_serve_phase(dev: torch.device, card: list[str]) -> dict[str, 
             turn_counts()  # the build's warm-up transcription is not counted
             seen["enhanced"].clear()
             lines.records.clear()
-            voice = asyncio.run(_session(url, _audio_turn(), _reply_or_quiet, 300))
+            voice = run_client(_session(url, _audio_turn(), _reply_or_quiet, 300))
             voice_counts, enhanced = turn_counts(), list(seen["enhanced"])
             image, image_attempts = _answered_turn(url, [
                 (f"{prompt} ({color})", _image_turn(prompt, color)) for prompt, color in IMAGE_PROMPTS], turn_counts)
@@ -4271,6 +4660,44 @@ def train_phase(dev: torch.device, card: list[str]) -> dict:
     return result
 
 
+def tf32_ab(names: tuple[str, ...] = ()) -> None:
+    """What the serve's TF32 switch (``builder.full_f32``) costs: each of the
+    Kokoro, MMS, Pocket and ChatTTS serves and the single-session Parakeet
+    serve (or those of *names*), at its ``SERVE_DEPTHS``, with TF32 off (as
+    served) and on (torch's defaults: cuDNN's f32 convolutions in TF32) in
+    turns (off, on, on, off) in this process; each run prints its phase's
+    line and an ``ab`` line.  Not a phase of :func:`main`: run it alone,
+    ``python3 -c 'import chip_smoke; chip_smoke.tf32_ab()'``."""
+    from s2s_tpu_torch import builder
+    from s2s_tpu_torch.ops import _build
+
+    check(torch.cuda.is_available(), "tf32_ab needs a CUDA device")
+    _build.build()
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()
+    print(json.dumps({"card": smi}), flush=True)
+    full_f32 = builder.full_f32
+
+    def torch_defaults():
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    cases = [(TTS_SERVES[t][0], tts_serve_phase, (dev, smi, t)) for t in TTS_SERVES] + [("serve", serve_phase, (dev,))]
+    try:
+        for name, fn, args in cases:
+            if names and name not in names:
+                continue
+            for mode in ("off", "on", "on", "off"):
+                builder.full_f32 = full_f32 if mode == "off" else torch_defaults
+                t0 = time.perf_counter()
+                with kept_tf32(), served_depth(*SERVE_DEPTHS[name]):
+                    fn(*args)
+                print(json.dumps({"ab": name, "tf32": mode, "seconds": time.perf_counter() - t0}), flush=True)
+    finally:
+        builder.full_f32 = full_f32
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to PyTorch", file=sys.stderr)
@@ -4291,7 +4718,7 @@ def main() -> int:
         collection)."""
         t0 = time.perf_counter()
         depth = served_depth(*SERVE_DEPTHS[name]) if name in SERVE_DEPTHS else contextlib.nullcontext()
-        with contextlib.nullcontext() if tf32 else tf32_mode(False), depth:
+        with kept_tf32(), contextlib.nullcontext() if tf32 else tf32_mode(False), depth:
             result = fn(*args)
         seconds[name] = time.perf_counter() - t0
         if name.endswith("serve"):
@@ -4318,10 +4745,10 @@ def main() -> int:
     run("tiny_vlm_parity", tiny_vlm_parity_phase, dev, tf32=False)
     run("tiny_deepfilter_parity", tiny_deepfilter_parity_phase, dev, tf32=False)
     run("convert_parity", convert_parity_phase, dev, tf32=False)
-    # under torch's defaults, as the serve runs it; before any other profiler session in this process (a
+    # under torch's defaults (its step is f32 under either); before any other profiler session in this process (a
     # profiler started after the traced round's dropped some or all of a tick's device events on an H100)
     run("silero", silero_phase, dev, smi)
-    # the Kokoro, MMS, Pocket and ChatTTS cascades, under torch's defaults as the CLI serves them; their
+    # the Kokoro, MMS, Pocket and ChatTTS cascades, with TF32 off as the builder sets it for a serve; their
     # per-synthesis profiles come before the traced round's profiler session, as Silero's do
     tts = {name: run(TTS_SERVES[name][0], tts_serve_phase, dev, smi, name) for name in TTS_SERVES}
     single = run("serve", serve_phase, dev)
@@ -4332,15 +4759,16 @@ def main() -> int:
     micro = run("w8a8_microbench", w8a8_microbench_phase, dev, dyn["rows"], tf32=False)
     run("tiny_quant_parity", tiny_quant_parity_phase, dev, tf32=False)
     quant_launches = run("quant_serve", quant_serve_phase, dev, smi)
+    tp_quant_launches = run("tp_quant_serve", tp_quant_serve_phase, dev, smi)
     flash = run("flash_attention", flash_attention_phase, dev, tf32=False)
     logmel = run("log_mel", log_mel_phase, dev, tf32=False)
     run("tiny_whisper_parity", tiny_whisper_parity_phase, dev, tf32=False)
     whisper_launches = run("whisper_serve", whisper_serve_phase, dev, smi)
-    # the new paths run under torch's defaults, as the serve does
+    # the new paths run under torch's defaults (the serves set TF32 off for themselves)
     run("head_logits", head_logits_phase, dev, smi)
     run("resample", resample_phase, dev)
     deployment = run("deployment_serve", deployment_serve_phase, dev, smi)
-    # the backends ported last, after every other serve, under torch's defaults
+    # the backends ported last, after every other serve
     vlm = run("paraformer_vlm_serve", paraformer_vlm_serve_phase, dev, smi)
     # the decoder LM's training path, last: a process group of world size 1 for its meshes
     run("tiny_train_parity", tiny_train_parity_phase, dev, tf32=False)
@@ -4356,8 +4784,9 @@ def main() -> int:
                       "paraformer_vlm_serve": vlm["flash_attention"]}
     tts_serves = {name: {f"{TTS_SERVES[t][0]}_launches": tts[t][name] for t in TTS_SERVES}
                   for name in ("int8_matmul", "decode_attention")}
-    for name in tts_serves:  # the tensor-parallel serve's, leader then follower
+    for name in tts_serves:  # the tensor-parallel serves', leader then follower
         tts_serves[name]["tp_serve_launches_by_rank"] = tp_launches[name]
+        tts_serves[name]["tp_quant_serve_launches_by_rank"] = tp_quant_launches[name]
     print(smi[0])
     print(json.dumps({"kernels": [
         {"name": "int8_matmul", "route": "cuda", "source": "s2s_tpu_torch/csrc/int8_matmul.cu",
@@ -4372,6 +4801,7 @@ def main() -> int:
          **{k: attn[k] for k in keys}},
         {"name": "int8_matmul_dyn", "route": "cuda", "source": "s2s_tpu_torch/csrc/int8_matmul_dyn.cu",
          "replaces": "s2s_tpu/ops/int8_matmul.py:80", "launches": quant_launches["int8_matmul_dyn"],
+         "tp_quant_serve_launches_by_rank": tp_quant_launches["int8_matmul_dyn"],
          **{k: dyn[k] for k in keys}},
         {"name": "int4_matmul", "route": "cuda", "source": "s2s_tpu_torch/csrc/int4_matmul.cu",
          "replaces": "s2s_tpu/ops/int4_matmul.py:74", "launches": quant_launches["int4_matmul"],

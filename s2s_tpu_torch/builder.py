@@ -47,7 +47,7 @@ from s2s_tpu_torch.realtime.server import RealtimeServer
 from s2s_tpu_torch.realtime.service import RealtimeService
 from s2s_tpu_torch.registry import GLOBAL_MODEL_CACHE, HandlerContext, get_backend
 from s2s_tpu_torch.runtime.device_scheduler import GLOBAL_SCHEDULER
-from s2s_tpu_torch.runtime.thread_manager import ThreadManager
+from s2s_tpu_torch.runtime.thread_manager import JOIN_TIMEOUT_S, ThreadManager
 from s2s_tpu_torch.stt.notifier import TranscriptionNotifier
 from s2s_tpu_torch.vad.energy import EnergyVAD
 from s2s_tpu_torch.vad.handler import VADHandler
@@ -57,33 +57,21 @@ logger = logging.getLogger(__name__)
 
 def check_supported(args: ParsedArguments) -> None:
     """Raise for what tensor-parallel serving does not take, before any rank
-    starts: ``int8-dyn`` on a split tree (the W8A8 kernel quantizes each row
-    by its absmax over the rank's own input dim, where one device's spans
-    the whole of it: matching it needs that absmax reduced across ranks
-    inside the kernel, ROADMAP), sampled decode (temperature above 0 runs
-    the single-session LM, whose whole tree no rank keeps), and heads that
-    the ranks do not divide."""
+    starts: a split dim (the MLP's hidden width, the LM's vocabulary) that
+    the ranks do not divide (``registry.check_tp_split``)."""
     n = args.module.model_parallel
     if n <= 1:
         return
     from s2s_tpu_torch.llm.local_backend import lm_config
     from s2s_tpu_torch.models.qwen3_tts import CONFIGS
-    from s2s_tpu_torch.registry import check_tp_heads, tp_engines
+    from s2s_tpu_torch.registry import check_tp_split, tp_engines
 
     engines = tp_engines(args)
-    for name, flag, config in (("lm", "--llm_quantize", args.llm_config), ("tts", "--tts_quantize", args.tts_config)):
-        if name in engines and config.quantize == "int8-dyn":
-            raise ValueError(f"{flag} int8-dyn with --model_parallel {n}: the W8A8 kernel takes each row's absmax "
-                             "over its own rank's input dim; a sharded tree needs that absmax reduced across "
-                             "ranks first (a kernel change, ROADMAP)")
-    if "lm" in engines and float(args.llm_config.gen_kwargs.get("temperature", 0.0)) > 0:
-        raise ValueError(f"--model_parallel {n}: sampled decode (temperature > 0) runs the single-session LM, "
-                         "which is not split over the ranks; use greedy decode")
     if "lm" in engines:
-        check_tp_heads(lm_config(args.llm_config.model_size), n, f"--llm_model_size {args.llm_config.model_size}")
+        check_tp_split(lm_config(args.llm_config.model_size), n, f"--llm_model_size {args.llm_config.model_size}")
     if "tts" in engines:
-        check_tp_heads(CONFIGS[args.tts_config.model_size]().lm, n,
-                       f"the Qwen3-TTS talker (--tts_model_size {args.tts_config.model_size})")
+        check_tp_split(CONFIGS[args.tts_config.model_size]().lm, n,
+                       f"the Qwen3-TTS talker (--tts_model_size {args.tts_config.model_size})", talker=True)
 
 
 def build_pipeline_unit(index: int, args: ParsedArguments, stop_event: threading.Event,
@@ -198,13 +186,25 @@ def warmup_engines() -> None:
                 warm()
 
 
+def full_f32() -> None:
+    """The serve's f32 numerics: cuDNN's f32 convolutions, and f32 matrix
+    products (off by torch's default), in full f32 rather than TF32, as the
+    CPU parity tests that vouch for the models compute them.  Process-wide,
+    set once at the serve's device setup (and a follower's); no model module
+    flips either flag."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
 def build_pipeline(args: ParsedArguments, stop_event: threading.Event,
                    device: torch.device, tp_layout=None) -> tuple[ThreadManager, RealtimeServer]:
-    """Check the options, start the tensor-parallel ranks (``--model_parallel``
-    above 1, on *tp_layout*: see :func:`launch_tp`), build the units (models
-    load on *device* here), warm the batched engines if asked, and build the
-    realtime server; returns (thread manager, server), not started."""
+    """Check the options, set the f32 numerics (:func:`full_f32`), start the
+    tensor-parallel ranks (``--model_parallel`` above 1, on *tp_layout*: see
+    :func:`launch_tp`), build the units (models load on *device* here), warm
+    the batched engines if asked, and build the realtime server; returns
+    (thread manager, server), not started."""
     check_supported(args)
+    full_f32()
     install_pipeline_log_filter()
     tp = launch_tp(args, device, tp_layout) if args.module.model_parallel > 1 else None
     try:
@@ -238,7 +238,29 @@ def build_pipeline(args: ParsedArguments, stop_event: threading.Event,
         if tp is not None:
             tp.close(abort=True)
         raise
-    return ThreadManager([*handlers, server]), server
+    return ServeManager([*handlers, server], server), server
+
+
+class ServeManager(ThreadManager):
+    """The serve's thread manager.  Its :meth:`stop` also unlinks the server
+    from its units and each unit from its handlers: the websockets server
+    and its connections' tasks hold the server in reference cycles (an
+    asyncio server and its handler, a closed connection's exception and its
+    frames), so without this the models and engines behind the handlers
+    would stay allocated until a garbage collection, not until the caller
+    lets go of the manager."""
+
+    def __init__(self, handlers, server: RealtimeServer) -> None:
+        super().__init__(handlers)
+        self._server = server
+
+    def stop(self, join_timeout_s: float = JOIN_TIMEOUT_S) -> None:
+        super().stop(join_timeout_s)
+        if any(thread.is_alive() for thread in self.threads):
+            return  # a stage still runs: leave it its unit
+        for unit in self._server.pool:
+            unit.handlers = []
+        self._server.pool = []
 
 
 # ── tensor-parallel serving: the leader's launcher and the follower ──

@@ -156,6 +156,7 @@ def run_follower(argv: list[str]) -> int:
 
     import torch.distributed as dist
 
+    from s2s_tpu_torch.builder import full_f32
     from s2s_tpu_torch.parallel.mesh import TPRuntime, rank_report
     from s2s_tpu_torch.registry import build_tp_engines
 
@@ -168,6 +169,7 @@ def run_follower(argv: list[str]) -> int:
     args, layout, timeout_s = pickle.loads(store.get("tp/args"))
     logging.basicConfig(level=getattr(logging, args.module.log_level.upper(), logging.INFO),
                         format=f"%(asctime)s %(levelname)s tp-rank-{ns.rank} %(name)s: %(message)s")
+    full_f32()
     runtime = TPRuntime(ns.rank, layout, store, timeout_s)
     failed: list[BaseException] = []
 

@@ -13,6 +13,16 @@
 // int8_matmul_dyn_reference. The sums stay exact while 127^2 * K < 2^31:
 // the entry point refuses K > kMaxK (133,144; `supports` admits K <= 32,768).
 //
+// Given row_amax (B f32 values, each row's max |x| over a K wider than this
+// call's: a row-parallel shard of tensor-parallel serving, where the caller
+// reduced the ranks' maxima), the kernel takes those maxima in place of the
+// cluster's own: xscale[b] = max(row_amax[b] / 127, 1e-12), the rest as
+// above, bit-equal to int8_matmul_dyn_reference given the same maxima. Then
+// no CTA reads x for its absmax, pushes it or waits on the cluster before
+// its products (every stage is issued at once); the first cluster barrier's
+// wait moves to just before the combine's remote stores, which it still
+// guards (every CTA of the cluster has started).
+//
 // What bounds it: B is 8-64 rows on the serving path (fewer take the W8A16
 // route), so a call must read the K * N weight bytes once (5.0 us at 2048 x
 // 8192 over 3.35 TB/s); x and the output are small beside them, and the int8
@@ -193,8 +203,8 @@ __device__ __forceinline__ uint32_t abs_max2(uint32_t m, uint32_t w) { return __
 template <int RN>
 __global__ void __launch_bounds__(kThreads, 1)
 w8a8_kernel(const __grid_constant__ CUtensorMap wmap, const __grid_constant__ CUtensorMap xmap,
-            const __nv_bfloat16* __restrict__ x, const float* __restrict__ wscale, __nv_bfloat16* __restrict__ out,
-            int B, int K, int N, int S) {
+            const __nv_bfloat16* __restrict__ x, const float* __restrict__ wscale,
+            const float* __restrict__ row_amax, __nv_bfloat16* __restrict__ out, int B, int K, int N, int S) {
   cg::cluster_group cluster = cg::this_cluster();
   const int C = static_cast<int>(cluster.num_blocks()), rank = static_cast<int>(cluster.block_rank());
   const int n0 = static_cast<int>(blockIdx.x) / C * kTileN;
@@ -220,6 +230,7 @@ w8a8_kernel(const __grid_constant__ CUtensorMap wmap, const __grid_constant__ CU
   float* tab = reinterpret_cast<float*>(base + L.tab);
   float* sc = reinterpret_cast<float*>(base + L.sc);
   const int chunk = wo::slice4(RN, kTileN, C);
+  const bool given = row_amax != nullptr;  // the rows' maxima come from the caller
 
   if (tid == 0) {
     for (int s = 0; s < S; ++s) {
@@ -241,15 +252,15 @@ w8a8_kernel(const __grid_constant__ CUtensorMap wmap, const __grid_constant__ CU
     wo::tma_load_2d(wo::smem_u32(xbox(s)), &xmap, full(s), k0 + t * kTileK, 0);
     wo::tma_load_2d(wo::smem_u32(wbox(s)), &wmap, full(s), n0, k0 + t * kTileK);
   };
-  const int first = min(T, min(S, kEarlyStages));
+  const int first = given ? min(T, S) : min(T, min(S, kEarlyStages));
   if (wg == kGroups) {  // producer warp: the first stages go out before the absmax
     if (lane == 0) {
       for (int t = 0; t < first; ++t) issue(t);
     }
     for (int c = lane; c < kTileN; c += 32) sc[c] = wscale[n0 + c];
     __syncwarp();
-    wo::cluster_wait();
-  } else {
+    if (!given) wo::cluster_wait();
+  } else if (!given) {
     // the partial absmax of each row over this CTA's K slice: warp w takes
     // rows w, w + 8, ..., its lanes 512 contiguous bytes of each at a time,
     // every row's load in flight together (on the card faster than one row
@@ -286,7 +297,7 @@ w8a8_kernel(const __grid_constant__ CUtensorMap wmap, const __grid_constant__ CU
       *cluster.map_shared_rank(amax + rank * kMaxRows + r, q) = xs[r];
     }
   }
-  cluster.sync();  // the cluster's maxima have arrived (release / acquire)
+  if (!given) cluster.sync();  // the cluster's maxima have arrived (release / acquire)
 
   int acc[2][RN / 2];
 #pragma unroll
@@ -301,8 +312,8 @@ w8a8_kernel(const __grid_constant__ CUtensorMap wmap, const __grid_constant__ CU
     __syncwarp();
   } else {
     for (int r = tid; r < RN; r += kConsumers) {
-      float m = 0.f;
-      for (int q = 0; q < C && r < B; ++q) m = fmaxf(m, amax[q * kMaxRows + r]);
+      float m = given && r < B ? row_amax[r] : 0.f;
+      for (int q = 0; q < C && r < B && !given; ++q) m = fmaxf(m, amax[q * kMaxRows + r]);
       xs[r] = r < B ? fmaxf(__fdiv_rn(m, 127.0f), 1e-12f) : 1.0f;  // padding rows: zero in, zero out
     }
     wo::sync_threads(1, kConsumers);
@@ -401,6 +412,7 @@ w8a8_kernel(const __grid_constant__ CUtensorMap wmap, const __grid_constant__ CU
   // (warp % 4) + lane / 4 in each 64-column block; in each 8-column chunk i
   // of N (rows of x) the columns 8 i + 2 * (lane % 4) + {0, 1}.
   int* sums = reinterpret_cast<int*>(base);
+  if (given) wo::cluster_wait();  // the first phase: every CTA of the cluster runs before anything is pushed
   __syncthreads();
   if (wg < kGroups) {
     int* mine = sums + wg * RN * kSumStride;
@@ -466,14 +478,16 @@ w8a8_kernel(const __grid_constant__ CUtensorMap wmap, const __grid_constant__ CU
 }  // namespace w8a8
 
 // C entry point, bound with ctypes. x (B, K) bf16, q (K, N) int8, wscale (N,)
-// f32, out (B, N) bf16, contiguous, 16-byte aligned; `plan` the wrapper's
+// f32, row_amax (B,) f32 or null (the rows' maxima over the whole K of a
+// row-parallel shard; null: this call's own), out (B, N) bf16, contiguous,
+// 16-byte aligned; `plan` the wrapper's
 // launch plan (weight_only::Plan, 6 ints: regime 2, tile_n 128, cluster C,
 // stages, rows = B rounded up to an s8 wgmma N, shared bytes). Returns the
 // cudaError_t of the launch: cudaErrorInvalidValue for shapes or a plan it
 // does not take (1 <= B <= 64, K and N multiples of 128, K <= kMaxK, 1 <= C
 // <= min(8, K / 128)), or a tensor map the CUDA driver refuses.
-extern "C" int s2s_int8_matmul_dyn(const void* x, const void* q, const void* wscale, void* out, int B, int K, int N,
-                                   const int* plan, void* stream) {
+extern "C" int s2s_int8_matmul_dyn(const void* x, const void* q, const void* wscale, const void* row_amax, void* out,
+                                   int B, int K, int N, const int* plan, void* stream) {
   using namespace w8a8;
   const wo::Plan p{plan[0], plan[1], plan[2], plan[3], plan[4], plan[5]};
   const int C = p.cluster;
@@ -488,15 +502,16 @@ extern "C" int s2s_int8_matmul_dyn(const void* x, const void* q, const void* wsc
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   const auto* ws = static_cast<const float*>(wscale);
+  const auto* ra = static_cast<const float*>(row_amax);
   auto* ob = static_cast<__nv_bfloat16*>(out);
   const auto st = static_cast<cudaStream_t>(stream);
   const int grid = N / kTileN * C;
   switch (p.rows) {
-    case 8: return wo::launch_cluster<w8a8_kernel<8>>(p, grid, kThreads, st, wmap, xmap, xb, ws, ob, B, K, N, p.stages);
-    case 16: return wo::launch_cluster<w8a8_kernel<16>>(p, grid, kThreads, st, wmap, xmap, xb, ws, ob, B, K, N, p.stages);
-    case 24: return wo::launch_cluster<w8a8_kernel<24>>(p, grid, kThreads, st, wmap, xmap, xb, ws, ob, B, K, N, p.stages);
-    case 32: return wo::launch_cluster<w8a8_kernel<32>>(p, grid, kThreads, st, wmap, xmap, xb, ws, ob, B, K, N, p.stages);
-    case 48: return wo::launch_cluster<w8a8_kernel<48>>(p, grid, kThreads, st, wmap, xmap, xb, ws, ob, B, K, N, p.stages);
-    default: return wo::launch_cluster<w8a8_kernel<64>>(p, grid, kThreads, st, wmap, xmap, xb, ws, ob, B, K, N, p.stages);
+    case 8: return wo::launch_cluster<w8a8_kernel<8>>(p, grid, kThreads, st, wmap, xmap, xb, ws, ra, ob, B, K, N, p.stages);
+    case 16: return wo::launch_cluster<w8a8_kernel<16>>(p, grid, kThreads, st, wmap, xmap, xb, ws, ra, ob, B, K, N, p.stages);
+    case 24: return wo::launch_cluster<w8a8_kernel<24>>(p, grid, kThreads, st, wmap, xmap, xb, ws, ra, ob, B, K, N, p.stages);
+    case 32: return wo::launch_cluster<w8a8_kernel<32>>(p, grid, kThreads, st, wmap, xmap, xb, ws, ra, ob, B, K, N, p.stages);
+    case 48: return wo::launch_cluster<w8a8_kernel<48>>(p, grid, kThreads, st, wmap, xmap, xb, ws, ra, ob, B, K, N, p.stages);
+    default: return wo::launch_cluster<w8a8_kernel<64>>(p, grid, kThreads, st, wmap, xmap, xb, ws, ra, ob, B, K, N, p.stages);
   }
 }

@@ -8,8 +8,10 @@ device: a bucketed prefill, then greedy decode in chunks (one host read per
 chunk) or temperature sampling from a seeded ``torch.Generator``.  With a
 cross-session batched engine (``shared_lm``,
 :class:`s2s_tpu_torch.parallel.session_scheduler.BatchedLMScheduler`) greedy
-turns decode through it.  ``_jax_generate`` keeps the JAX handler's name
-for the generation entry point, which the copied methods call.
+turns decode through it; under tensor parallelism sampled turns run on its
+single-session programs over the ranks' shards (the handler keeps no
+tree).  ``_jax_generate`` keeps the JAX handler's name for the generation
+entry point, which the copied methods call.
 """
 
 from __future__ import annotations
@@ -223,8 +225,9 @@ class LocalTorchLLMHandler(BaseLLMHandler):
     def _build_generator(self, model_size, params, tokenizer):
         cfg = lm_config(model_size)
         if params is None and getattr(self.shared_lm, "tp", None) is not None:
-            # tensor-parallel engine: every rank holds its shard only, and
-            # the sampled single-session path is refused at build
+            # tensor-parallel engine: every rank holds its shard only; the
+            # single-session path (sampled decode) runs on the engine's
+            # single-session programs over the ranks
             self.cfg, self.params, self.tokenizer = cfg, None, tokenizer or SimpleCharTokenizer()
             return
         if params is None:
@@ -252,9 +255,15 @@ class LocalTorchLLMHandler(BaseLLMHandler):
             yield from self._decode_token_stream(self.shared_lm.generate(ids, max_new, cancel_check=cancel_check))
             return
         with self.scheduler.slot(lane):
-            state = decoder_lm.init_decode_state(
-                self.cfg, 1, max_t=min(bucket + max_new, self.cfg.max_seq_len), device=self.device
-            )
+            max_t = min(bucket + max_new, self.cfg.max_seq_len)
+            if self.params is None:
+                # tensor parallelism (greedy turns took the engine above):
+                # the engine's single-session programs on the ranks' shards
+                logits = self.shared_lm.single_prefill(padded[None], len(ids), max_t)
+                yield from self._sampled_decode(logits, None, max_new, temperature, cancel_check,
+                                                lambda token, state: (self.shared_lm.single_step(token), state))
+                return
+            state = decoder_lm.init_decode_state(self.cfg, 1, max_t=max_t, device=self.device)
             tokens = torch.from_numpy(padded[None]).to(self.device)
             logits, state = decoder_lm.prefill(self.params, self.cfg, tokens, state, len(ids))
             if temperature > 0:
@@ -296,9 +305,16 @@ class LocalTorchLLMHandler(BaseLLMHandler):
         if pending:
             yield self.tokenizer.decode(pending)
 
-    def _sampled_decode(self, logits, state, max_new, temperature, cancel_check) -> Iterator[str]:
+    def _decode_step(self, token: int, state):
+        return decoder_lm.decode_step(
+            self.params, self.cfg, torch.tensor([token], dtype=torch.int32, device=self.device), state)
+
+    def _sampled_decode(self, logits, state, max_new, temperature, cancel_check, step=None) -> Iterator[str]:
         """Temperature sampling with an explicit generator, seeded afresh for
-        each generation so that a reply is reproducible."""
+        each generation so that a reply is reproducible.  *step* (token,
+        state) -> (next logits, state) runs the model on a drawn token
+        (default: this handler's weights)."""
+        step = step or self._decode_step
         gen = torch.Generator(device=self.device).manual_seed(0)
         emitted = 0
         pending: list[int] = []
@@ -314,9 +330,7 @@ class LocalTorchLLMHandler(BaseLLMHandler):
                 yield piece
                 pending = []
             emitted += 1
-            step_logits, state = decoder_lm.decode_step(
-                self.params, self.cfg, torch.tensor([token], dtype=torch.int32, device=self.device), state
-            )
+            step_logits, state = step(token, state)
             probs = torch.softmax(step_logits[0] / temperature, dim=-1)
             token = int(torch.multinomial(probs, 1, generator=gen))
         if pending:

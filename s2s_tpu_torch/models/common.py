@@ -160,22 +160,20 @@ def length_mask(tk: int, valid_len: int, device: torch.device | str = "cpu") -> 
     return torch.arange(tk, device=device)[None, None, None, :] < valid_len
 
 
-def linear(x: torch.Tensor, w, b: torch.Tensor | None = None) -> torch.Tensor:
+def linear(x: torch.Tensor, w, b: torch.Tensor | None = None, group=None) -> torch.Tensor:
     """x @ w (+ b) with f32 accumulation, output in x's dtype.  A quantized
     weight goes through its path: :class:`QuantWeight` W8A16,
-    :class:`DynQuantWeight` W8A8 dynamic, :class:`Quant4Weight` packed int4."""
+    :class:`DynQuantWeight` W8A8 dynamic, :class:`Quant4Weight` packed int4.
+    *group*: *w* is a row-parallel shard over that tensor-parallel group (a
+    W8A8 weight then quantizes x by its rows' absmax across the ranks)."""
     if isinstance(w, QuantWeight):
         return quantized_linear(x, w, b)
     if isinstance(w, DynQuantWeight):
-        return quantized_linear_dyn(x, w, b)
+        return quantized_linear_dyn(x, w, b, group)
     if isinstance(w, Quant4Weight):
         return quantized_linear4(x, w, b)
     out = torch.matmul(x, w.to(x.dtype))
     return out + b if b is not None else out
-
-
-def swiglu(x: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
-    return linear(torch.nn.functional.silu(linear(x, w_gate)) * linear(x, w_up), w_down)
 
 
 def layer_slice(layers: Params, i: int) -> Params:

@@ -24,10 +24,13 @@ Tensor-parallel serving runs the same blocks on one rank's shard of the
 tree (``mesh.local_shard`` of :func:`param_shardings`, plain tensors) with
 a ``tp`` group (``mesh.TPGroup``): head counts come from the shard's
 widths, the row-parallel ``wo`` and ``w_down`` outputs are summed across
-ranks, a vocabulary-split embedding is looked up rank by rank and summed,
-and vocabulary-split logits are gathered before anyone takes an argmax.
-Each of these engages only where the weight at hand is split, so with
-``tp=None``, or a group of one rank, nothing changes.
+ranks (a W8A8 shard first reduces its rows' absmax across them), a
+vocabulary-split embedding is looked up rank by rank and summed, and
+vocabulary-split logits are gathered before anyone takes an argmax.  Where
+the ranks do not divide the heads, every rank keeps the attention block
+whole (:func:`heads_split`).  Each of these engages only where the weight
+at hand is split, so with ``tp=None``, or a group of one rank, nothing
+changes.
 """
 
 from __future__ import annotations
@@ -54,7 +57,6 @@ from s2s_tpu_torch.models.common import (
     rms_norm,
     rope_frequencies,
     stack_layers,
-    swiglu,
     unstack_layers,
 )
 from s2s_tpu_torch.ops.quant import QUANT_TYPES, Quant4Weight
@@ -171,9 +173,20 @@ def param_shardings(cfg: DecoderLMConfig) -> Params:
     return specs
 
 
+def heads_split(cfg: DecoderLMConfig, n: int) -> bool:
+    """Whether *n* ranks split the attention heads: only where *n* divides
+    both the query and the kv heads, each rank then holding whole heads and
+    their kv heads.  Elsewhere every rank keeps the whole attention block
+    (``wq``, ``wk``, ``wv``, ``wo``, the q/k norms, that layer's cache) and
+    ``wo``'s output is not summed: the same math as one device's, where the
+    JAX package splits those columns mid-head and lets XLA reshard them."""
+    return cfg.n_heads % n == 0 and cfg.n_kv_heads % n == 0
+
+
 def local_kv_heads(cfg: DecoderLMConfig, tp=None) -> int:
-    """The kv heads one rank holds (all of them without tensor parallelism)."""
-    return cfg.n_kv_heads // (tp.size if tp is not None else 1)
+    """The kv heads one rank holds (all of them without tensor parallelism,
+    or where the ranks keep the attention block whole)."""
+    return cfg.n_kv_heads // tp.size if tp is not None and heads_split(cfg, tp.size) else cfg.n_kv_heads
 
 
 class DecodeState(NamedTuple):
@@ -206,10 +219,21 @@ def in_width(w) -> int:
     return w.shape[-2]
 
 
-def row_parallel(y, w, full_in: int, tp):
-    """*y* = x @ *w*, summed across the ranks of *tp* when *w* holds only a
-    block of its *full_in* input rows (a row-parallel shard)."""
-    return y if tp is None or in_width(w) == full_in else tp.all_reduce(y)
+def row_parallel(x, w, full_in: int, tp):
+    """x @ *w*, summed across the ranks of *tp* when *w* holds only a block
+    of its *full_in* input rows (a row-parallel shard; a W8A8 shard
+    quantizes x by each row's absmax over all *full_in*, reduced across the
+    ranks).  A whole *w* (no *tp*, or an attention block every rank keeps
+    whole) is a plain linear."""
+    if tp is None or in_width(w) == full_in:
+        return linear(x, w)
+    return tp.all_reduce(linear(x, w, group=tp))
+
+
+def mlp(h, lp: Params, cfg: DecoderLMConfig, tp=None):
+    """The SwiGLU MLP of one layer, its down projection row-parallel."""
+    act = torch.nn.functional.silu(linear(h, lp["w_gate"])) * linear(h, lp["w_up"])
+    return row_parallel(act, lp["w_down"], cfg.d_ff, tp)
 
 
 def embed_tokens(table, tokens, cfg: DecoderLMConfig, tp=None):
@@ -250,9 +274,9 @@ def _block(x, lp: Params, cfg: DecoderLMConfig, cache: KVCache | None, pos, cos,
         k_all, v_all = k, v
     attn = _attention(q, k_all, v_all, mask)
     attn = attn.transpose(1, 2).reshape(b, t, n_q * hd)
-    x = x + row_parallel(linear(attn, lp["wo"]), lp["wo"], cfg.n_heads * hd, tp)
+    x = x + row_parallel(attn, lp["wo"], cfg.n_heads * hd, tp)
     h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
-    return x + row_parallel(swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"]), lp["w_down"], cfg.d_ff, tp), cache
+    return x + mlp(h, lp, cfg, tp), cache
 
 
 def _dtensor(t):
@@ -405,12 +429,13 @@ def _hidden_prefill(params: Params, cfg: DecoderLMConfig, x, state: DecodeState,
     return last, DecodeState(caches, int(lengths.max()))
 
 
-def prefill(params: Params, cfg: DecoderLMConfig, tokens, state: DecodeState, prompt_len):
+def prefill(params: Params, cfg: DecoderLMConfig, tokens, state: DecodeState, prompt_len, tp=None):
     """Consume a (B, T_bucket) right-padded prompt; fill caches; return
-    (last-position logits (B, V) f32, new state)."""
-    x = params["embed"][tokens.long()].to(cfg.dtype)
-    last, state = _hidden_prefill(params, cfg, x, state, prompt_len)
-    return _logits(last[:, None, :], params, cfg)[:, 0], state
+    (last-position logits (B, V) f32, new state).  With *tp*, on this
+    rank's shard: the logits are whole on every rank."""
+    x = embed_tokens(params["embed"], tokens, cfg, tp).to(cfg.dtype)
+    last, state = _hidden_prefill(params, cfg, x, state, prompt_len, tp)
+    return _logits(last[:, None, :], params, cfg, tp)[:, 0], state
 
 
 def prefill_embeds(params: Params, cfg: DecoderLMConfig, embeds, state: DecodeState, prompt_len):
@@ -431,11 +456,12 @@ def _hidden_step(params: Params, cfg: DecoderLMConfig, x, state: DecodeState, tp
     return x, DecodeState(caches, pos + 1)
 
 
-def decode_step(params: Params, cfg: DecoderLMConfig, token, state: DecodeState):
-    """One token step. token: (B,) int. Returns (logits (B, V) f32, new state)."""
-    x = params["embed"][token.long()][:, None, :].to(cfg.dtype)
-    x, state = _hidden_step(params, cfg, x, state)
-    return _logits(x, params, cfg)[:, 0], state
+def decode_step(params: Params, cfg: DecoderLMConfig, token, state: DecodeState, tp=None):
+    """One token step. token: (B,) int. Returns (logits (B, V) f32, new
+    state); with *tp* as :func:`prefill`."""
+    x = embed_tokens(params["embed"], token, cfg, tp)[:, None, :].to(cfg.dtype)
+    x, state = _hidden_step(params, cfg, x, state, tp)
+    return _logits(x, params, cfg, tp)[:, 0], state
 
 
 def decode_chunk(params: Params, cfg: DecoderLMConfig, token, state: DecodeState, n_tokens: int, eos_id: int):

@@ -15,9 +15,9 @@ numerics (f32 throughout):
 The convolutions are written as products over 3-tap windows, not as
 ``conv1d``: cuDNN may run an f32 convolution in TF32 under PyTorch's
 defaults (``torch.backends.cudnn.allow_tf32``), while an f32 product stays
-f32 under them (``torch.backends.cuda.matmul.allow_tf32`` is off), and the
-serve must not flip a process-wide flag that other models' numerics depend
-on.  Convolution weights are PyTorch's ``(out, in, k)``;
+f32 under them (``torch.backends.cuda.matmul.allow_tf32`` is off), so the
+step is f32 whatever a caller sets (the serve turns cuDNN's TF32 off,
+``builder.full_f32``).  Convolution weights are PyTorch's ``(out, in, k)``;
 :func:`s2s_tpu_torch.weights.silero_params` carries the JAX package's
 ``(k, in, out)`` trees across, and :func:`convert_silero_state_dict` maps
 the published checkpoint onto such a tree.  The step has a batch dimension

@@ -5,14 +5,16 @@ process, all started together, and the objects are linked into ONE shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds, not minutes).  The library lands in ``build/s2s_tpu_torch/`` at the repository
 root, named by a hash of the sources, the headers they share
-(``csrc/*.cuh``) and the flags, so an edited source or header is never
-served from a stale build.  Nothing happens at import: the first kernel call
+(``csrc/*.cuh``), the flags and the toolkit's version (as ``nvcc
+--version`` prints it), so an edited source or header, or another
+toolkit, is never served from a stale build.  Nothing happens at import: the first kernel call
 (or an explicit :func:`load`) builds.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -54,12 +56,25 @@ def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+@functools.lru_cache(maxsize=None)
+def _nvcc_version() -> str:
+    """What ``nvcc --version`` prints ("" where there is no toolkit: no
+    library can be built there, and none is loaded)."""
+    try:
+        nvcc = _nvcc()
+    except RuntimeError:
+        return ""
+    return subprocess.run([nvcc, "--version"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                          check=True, timeout=60).stdout
+
+
 def _library_path() -> Path:
     digest = hashlib.sha256()
     for src in sorted([*_sources(), *CSRC.glob("*.cuh")]):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(_nvcc_version().encode())
     return BUILD_DIR / f"libs2s_tpu_torch_{digest.hexdigest()[:16]}.so"
 
 
@@ -108,7 +123,7 @@ def load() -> ctypes.CDLL:
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             lib.s2s_int8_matmul.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, ctypes.POINTER(i32), ptr]
             lib.s2s_int8_matmul.restype = i32
-            lib.s2s_int8_matmul_dyn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, ctypes.POINTER(i32), ptr]
+            lib.s2s_int8_matmul_dyn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ctypes.POINTER(i32), ptr]
             lib.s2s_int8_matmul_dyn.restype = i32
             lib.s2s_int4_matmul.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, ctypes.POINTER(i32), ptr]
             lib.s2s_int4_matmul.restype = i32

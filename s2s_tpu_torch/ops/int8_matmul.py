@@ -45,18 +45,20 @@ def int8_matmul_reference(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor)
     return ((x.float() @ q.float()) * scale.float()).to(x.dtype)
 
 
-def int8_matmul_dyn_reference(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+def int8_matmul_dyn_reference(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                              row_amax: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch version of W8A8 dynamic, the JAX package's
-    ``int8_matmul_dyn_reference`` math: per-row absmax of x in f32,
-    ``xscale = max(amax / 127, 1e-12)`` (divided by a tensor: PyTorch
-    multiplies by the reciprocal of a scalar divisor, which is not IEEE
-    division), ``xq = clip(round(x / xscale), +-127)``
+    ``int8_matmul_dyn_reference`` math: per-row absmax of x in f32 (or the
+    given *row_amax* (B,) f32: each row's over a wider K, a row-parallel
+    shard's whole input dim), ``xscale = max(amax / 127, 1e-12)`` (divided
+    by a tensor: PyTorch multiplies by the reciprocal of a scalar divisor,
+    which is not IEEE division), ``xq = clip(round(x / xscale), +-127)``
     (round half to even), the integer product, then
     ``(f32(acc) * xscale) * scale`` rounded once to x's dtype.  The integer
     product runs in float64, exact on every device (|acc| <= 127^2 K < 2^53;
     cuBLAS has no int32 ``mm``)."""
     x32 = x.float()
-    amax = x32.abs().amax(dim=1, keepdim=True)
+    amax = x32.abs().amax(dim=1, keepdim=True) if row_amax is None else row_amax.float().reshape(-1, 1)
     xscale = torch.clamp_min(amax / torch.full_like(amax, 127.0), 1e-12)
     xq = torch.clamp(torch.round(x32 / xscale), -127, 127)
     acc = (xq.double() @ q.double()).float()
@@ -105,9 +107,13 @@ int8_matmul.launches = 0
 int8_matmul.rows = collections.Counter()
 
 
-def int8_matmul_dyn(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+def int8_matmul_dyn(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                    row_amax: torch.Tensor | None = None) -> torch.Tensor:
     """W8A8 dynamic: x (B, K) bf16, q (K, N) int8, scale (N,) f32 -> (B, N)
-    bf16, bit-equal to :func:`int8_matmul_dyn_reference`.
+    bf16, bit-equal to :func:`int8_matmul_dyn_reference` (with the same
+    *row_amax*: (B,) f32, each row's max |x| over the whole input dim of a
+    row-parallel shard, reduced across the ranks by the caller; None: the
+    rows' own over K).
 
     CPU tensors take the plain version.  CUDA tensors launch
     ``csrc/int8_matmul_dyn.cu`` once on the current stream (built at first
@@ -116,11 +122,16 @@ def int8_matmul_dyn(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> to
     epilogue in one launch, allocating only the output; raise on any shape,
     type, layout or launch error."""
     if x.device.type == "cpu":
-        return int8_matmul_dyn_reference(x, q, scale)
+        return int8_matmul_dyn_reference(x, q, scale, row_amax)
     if x.device.type != "cuda":
         raise ValueError(f"int8_matmul_dyn: unsupported device {x.device}")
     _check(x, q, scale, "int8_matmul_dyn")
-    out = weight_only.launch("s2s_int8_matmul_dyn", x, q, scale, planes=1, regime=weight_only.W8A8)
+    if row_amax is not None and (row_amax.shape != (x.shape[0],) or row_amax.dtype != torch.float32
+                                 or row_amax.device != x.device or not row_amax.is_contiguous()):
+        raise ValueError(f"int8_matmul_dyn wants row_amax ({x.shape[0]},) f32, contiguous, on {x.device}; got "
+                         f"{tuple(row_amax.shape)} {row_amax.dtype} on {row_amax.device}")
+    out = weight_only.launch("s2s_int8_matmul_dyn", x, q, scale, planes=1, regime=weight_only.W8A8,
+                             row_amax=row_amax)
     _build.count_launch(int8_matmul_dyn, x.shape[0])
     return out
 

@@ -122,11 +122,19 @@ def quantized_linear(x: torch.Tensor, qw: QuantWeight, b: torch.Tensor | None = 
     return out + b if b is not None else out
 
 
-def quantized_linear_dyn(x: torch.Tensor, qw: DynQuantWeight, b: torch.Tensor | None = None) -> torch.Tensor:
+def quantized_linear_dyn(x: torch.Tensor, qw: DynQuantWeight, b: torch.Tensor | None = None,
+                         group=None) -> torch.Tensor:
     """x @ dequant(qw) through W8A8 dynamic, routed as the JAX package routes
     it: under 8 rows the exact W8A16 path (:func:`quantized_linear`); bf16
     CUDA calls of up to 64 rows with aligned dims launch the W8A8 kernel;
-    the rest take the plain version, the same integer math."""
+    the rest take the plain version, the same integer math.
+
+    *group* (a ``parallel.mesh.TPGroup``) marks *qw* as a row-parallel
+    shard of tensor-parallel serving: each row's absmax is taken over the
+    rank's block of x in f32, as the JAX package takes it outside its
+    kernel, and the ranks' maxima are reduced (``group.all_max``), so every
+    row quantizes by its absmax over the whole input dim, as one device's
+    does; the kernel or the plain version takes those maxima."""
     lead = x.shape[:-1]
     k = x.shape[-1]
     n = qw.q.shape[1]
@@ -134,10 +142,11 @@ def quantized_linear_dyn(x: torch.Tensor, qw: DynQuantWeight, b: torch.Tensor | 
     if bsz < 8:
         return quantized_linear(x, QuantWeight(qw.q, qw.scale), b)
     x2 = x.reshape(bsz, k)
+    row_amax = group.all_max(x2.float().abs().amax(dim=1)) if group is not None else None
     if x.is_cuda and x.dtype == torch.bfloat16 and _mm.supports(bsz, k, n):
-        out = _mm.int8_matmul_dyn(x2.contiguous(), qw.q, qw.scale)
+        out = _mm.int8_matmul_dyn(x2.contiguous(), qw.q, qw.scale, row_amax)
     else:
-        out = _mm.int8_matmul_dyn_reference(x2, qw.q, qw.scale)
+        out = _mm.int8_matmul_dyn_reference(x2, qw.q, qw.scale, row_amax)
     out = out.reshape(*lead, n)
     return out + b if b is not None else out
 

@@ -240,12 +240,14 @@ def device_plan(b: int, k: int, n: int, planes: int, device: torch.device, regim
 
 
 def launch(entry: str, x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, planes: int,
-           plan: Plan | None = None, regime: int | None = None) -> torch.Tensor:
+           plan: Plan | None = None, regime: int | None = None,
+           row_amax: torch.Tensor | None = None) -> torch.Tensor:
     """Run the kernel *entry* (``s2s_int8_matmul``, ``s2s_int4_matmul`` or,
-    with *regime* :data:`W8A8`, ``s2s_int8_matmul_dyn``) on checked CUDA
-    operands as *plan* (default :func:`device_plan`) plans it, on the
-    current stream; allocates only the output.  Raises on a launch error.
-    Counts nothing: the wrappers count their launches."""
+    with *regime* :data:`W8A8`, ``s2s_int8_matmul_dyn``, which also takes
+    the rows' maxima *row_amax* or None) on checked CUDA operands as *plan*
+    (default :func:`device_plan`) plans it, on the current stream; allocates
+    only the output.  Raises on a launch error.  Counts nothing: the
+    wrappers count their launches."""
     b, k = x.shape
     n = w.shape[1]
     if plan is None:
@@ -255,8 +257,10 @@ def launch(entry: str, x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, pl
     lib = _build.load()
     with torch.cuda.device(x.device):
         out = torch.empty((b, n), dtype=torch.bfloat16, device=x.device)
-        err = getattr(lib, entry)(x.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(), b, k, n, args,
-                                  torch.cuda.current_stream().cuda_stream)
+        operands = [x.data_ptr(), w.data_ptr(), scale.data_ptr()]
+        if regime == W8A8:
+            operands.append(row_amax.data_ptr() if row_amax is not None else None)
+        err = getattr(lib, entry)(*operands, out.data_ptr(), b, k, n, args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{entry} kernel launch failed: cudaError {err} (B={b}, K={k}, N={n}, {plan})")
     return out

@@ -47,13 +47,13 @@ from s2s_tpu_torch.models.common import (
     n_stacked,
     rms_norm,
     rope_frequencies,
-    swiglu,
 )
 from s2s_tpu_torch.models.decoder_lm import (
     DecoderLMConfig,
     _logits,
     embed_tokens,
     local_kv_heads,
+    mlp,
     out_width,
     row_parallel,
 )
@@ -182,9 +182,9 @@ def tail_hidden_step(params: Params, cfg: DecoderLMConfig, embeds, kc, vc, pos0,
         tail_k[l, :, :, i] = k[:, :, 0]
         tail_v[l, :, :, i] = v[:, :, 0]
         attn = concat_attention(q[:, :, 0].contiguous(), kc[l], vc[l], tail_k[l], tail_v[l], pos0, tail_len)
-        x = x + row_parallel(linear(attn.reshape(b, 1, n_q * hd), lp["wo"]), lp["wo"], cfg.n_heads * hd, tp)
+        x = x + row_parallel(attn.reshape(b, 1, n_q * hd), lp["wo"], cfg.n_heads * hd, tp)
         hn = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
-        x = x + row_parallel(swiglu(hn, lp["w_gate"], lp["w_up"], lp["w_down"]), lp["w_down"], cfg.d_ff, tp)
+        x = x + mlp(hn, lp, cfg, tp)
     return x[:, 0], tail_k, tail_v
 
 

@@ -10,10 +10,11 @@ insert the collectives.  That is the training path.
 
 Tensor-parallel serving (``--model_parallel N``) takes no DTensor: each
 rank is a process holding its shard as plain tensors (:func:`local_shard`),
-and the serving programs issue two collectives explicitly through a
+and the serving programs issue their collectives explicitly through a
 :class:`TPGroup`: a sum (``all_reduce``, in f32) after the row-parallel
-projections and to gather the vocabulary-split logits and embedding rows,
-and a broadcast of the leader's commands.  :class:`TPRuntime` starts one
+projections and to gather the vocabulary-split logits and embedding rows, a
+maximum (``all_max``) of the rows' absmax before a W8A8 row-parallel
+projection, and a broadcast of the leader's commands.  :class:`TPRuntime` starts one
 rank's groups; :class:`TPLayout` says where each rank runs.
 """
 
@@ -251,9 +252,9 @@ _HEARTBEAT = "__tp_heartbeat__"
 
 class TPGroup:
     """One engine's tensor-parallel group on one rank: its collectives
-    (``all_reduce``, ``gather_last``) on the layout's transport and its
-    command channel (``broadcast``, gloo on the CPU).  ``collectives``
-    counts the sums issued.
+    (``all_reduce``, ``all_max``, ``gather_last``) on the layout's
+    transport and its command channel (``broadcast``, gloo on the CPU).
+    ``collectives`` counts the sums and maxima issued.
 
     Every sum runs in f32: a partial in the activations' dtype is widened,
     summed across ranks and cast back once.  So the row-parallel
@@ -282,6 +283,15 @@ class TPGroup:
         buf = t.float()
         self._coll.allreduce([buf], _sum_options()).wait()
         return buf.to(t.dtype)
+
+    def all_max(self, t: torch.Tensor) -> torch.Tensor:
+        """The elementwise maximum of *t* over the ranks, in f32 (exact; in
+        place when *t* is f32): the rows' absmax of a W8A8 row-parallel
+        shard over the whole input dim."""
+        self.collectives += 1
+        buf = t.float()
+        self._coll.allreduce([buf], _max_options()).wait()
+        return buf
 
     def gather_last(self, local: torch.Tensor, full: int) -> torch.Tensor:
         """Each rank's block of the last dim (rank r's at ``r * width``) in
@@ -331,14 +341,17 @@ class TPGroup:
 def rank_report(device: torch.device) -> dict:
     """One rank's process-wide readings after a tensor-parallel run: the
     launches of the weight-only and attention kernels (their wrappers'
-    counts) and the card's allocated bytes (now, after a garbage
-    collection, and at peak)."""
+    counts), the int8 and W8A8 kernels' launches by the rows of the call,
+    and the card's allocated bytes (now, after a garbage collection, and at
+    peak)."""
     from s2s_tpu_torch.ops import decode_attention, int4_matmul, int8_matmul
 
     report = {"launches": {"int8_matmul": int8_matmul.int8_matmul.launches,
                            "int8_matmul_dyn": int8_matmul.int8_matmul_dyn.launches,
                            "int4_matmul": int4_matmul.int4_matmul.launches,
-                           "decode_attention": decode_attention.concat_attention.launches}}
+                           "decode_attention": decode_attention.concat_attention.launches},
+              "launches_by_rows": {fn.__name__: {str(rows): n for rows, n in sorted(fn.rows.items())}
+                                   for fn in (int8_matmul.int8_matmul, int8_matmul.int8_matmul_dyn)}}
     if device.type == "cuda":
         gc.collect()
         torch.cuda.synchronize(device)
@@ -350,6 +363,12 @@ def rank_report(device: torch.device) -> dict:
 def _sum_options():
     opts = dist.AllreduceOptions()
     opts.reduceOp = dist.ReduceOp.SUM
+    return opts
+
+
+def _max_options():
+    opts = dist.AllreduceOptions()
+    opts.reduceOp = dist.ReduceOp.MAX
     return opts
 
 

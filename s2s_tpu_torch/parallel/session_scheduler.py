@@ -33,7 +33,11 @@ host-made inputs: prompt tokens, text tokens, speaker rows), and a
 follower's :meth:`~BatchedLMScheduler.follow` loop runs the same program on
 its own shard and state.  The programs' outputs are replicated after their
 collectives, so the followers' positions, tokens, embeddings and contexts
-stay equal to the leader's without being sent.  On the card each such
+stay equal to the leader's without being sent.  The LM engine also runs
+the single-session programs (``single_prefill``, ``single_step``) for the
+handler's sampled decode, on a one-row state every rank keeps: the logits
+come whole to every rank, and the leader's handler draws the next token
+and sends it as the next step's argument.  On the card each such
 engine runs on a CUDA stream of its own, on every rank, so the two
 engines' collectives never wait on each other's work.
 """
@@ -53,7 +57,7 @@ from typing import Any, Callable, Iterator, Optional
 import numpy as np
 import torch
 
-from s2s_tpu_torch.models import qwen3_tts
+from s2s_tpu_torch.models import decoder_lm, qwen3_tts
 from s2s_tpu_torch.parallel import batched_decode as bd
 
 logger = logging.getLogger(__name__)
@@ -376,6 +380,9 @@ class _Mirror:
     def _init_mirror(self, tp) -> None:
         self._tp = tp
         self._stream = None
+        # the leader's programs go out one at a time, in the order of their
+        # commands: the driver's and a handler thread's (``_call``)
+        self._run_lock = threading.Lock()
         if tp is not None:
             tp.active = True
             if self.device.type == "cuda":
@@ -386,9 +393,24 @@ class _Mirror:
         return contextlib.nullcontext() if self._stream is None else torch.cuda.stream(self._stream)
 
     def _run(self, op: str, *args):
-        if self._tp is not None and self._tp.rank == 0:
-            self._tp.broadcast((op, args))
-        return getattr(self, "_op_" + op)(*args)
+        if self._tp is None:
+            return getattr(self, "_op_" + op)(*args)
+        with self._run_lock:
+            if self._tp.rank == 0:
+                self._tp.broadcast((op, args))
+            return getattr(self, "_op_" + op)(*args)
+
+    def _call(self, op: str, *args) -> torch.Tensor:
+        """Run program *op* from a thread other than the driver (on the
+        engine's stream, mirrored as ``_run`` mirrors it); its one output is
+        then ready on the caller's stream."""
+        with self._on_stream():
+            out = self._run(op, *args)
+        if self._stream is not None:
+            caller = torch.cuda.current_stream(self.device)
+            caller.wait_stream(self._stream)
+            out.record_stream(caller)
+        return out
 
     def follow(self) -> None:
         """A follower's engine: run every program the leader broadcasts, on
@@ -464,6 +486,7 @@ class BatchedLMScheduler(_TraceMixin, _Mirror):
         self._stop = False
         self._steady_skips = 0
         self._width_buckets = sorted({min(w, n_slots) for w in (4, 8, 16, n_slots)})
+        self._single: decoder_lm.DecodeState | None = None  # the single-session programs' state
         self._init_trace("lm")
         self._init_mirror(tp)
 
@@ -533,6 +556,32 @@ class BatchedLMScheduler(_TraceMixin, _Mirror):
             self.eos_id, slot_ids, self._tp)
         self._tokens[slot_ids] = tok_out
         return toks, emitted
+
+    def _op_single_prefill(self, tokens: np.ndarray, prompt_len: int, max_t: int) -> torch.Tensor:
+        self._single = decoder_lm.init_decode_state(self.cfg, 1, max_t, self.device, self._tp)
+        logits, self._single = decoder_lm.prefill(self.params, self.cfg, torch.from_numpy(tokens).to(self.device),
+                                                  self._single, prompt_len, self._tp)
+        return logits
+
+    def _op_single_step(self, token: int) -> torch.Tensor:
+        token_t = torch.tensor([token], dtype=torch.int32, device=self.device)
+        logits, self._single = decoder_lm.decode_step(self.params, self.cfg, token_t, self._single, self._tp)
+        return logits
+
+    def single_prefill(self, tokens: np.ndarray, prompt_len: int, max_t: int) -> torch.Tensor:
+        """The single-session path on the engine's weights (under tensor
+        parallelism no rank keeps the whole LM, so the handler's sampled
+        decode runs here): a fresh one-row state of *max_t* positions, every
+        rank's for its kv heads, prefilled with *tokens* (1, bucket), the
+        prompt right-padded to its bucket.  Returns the last position's
+        logits (1, V) f32, whole on every rank."""
+        return self._call("single_prefill", tokens, prompt_len, max_t)
+
+    def single_step(self, token: int) -> torch.Tensor:
+        """One step of the single-session state on *token*, which the caller
+        (the leader's handler) drew and every rank receives in the command;
+        returns the next logits (1, V) f32."""
+        return self._call("single_step", int(token))
 
     def _replicated_state(self) -> tuple:
         return self._state.pos, self._tokens

@@ -301,12 +301,16 @@ def _tp_group(ctx: HandlerContext, engine: str):
     return ctx.tp.group(engine)
 
 
-def check_tp_heads(cfg, n: int, what: str) -> None:
-    """Raise when *n* ranks do not divide the query and kv heads of *cfg*
-    (each rank holds whole heads and their kv heads)."""
-    if cfg.n_heads % n or cfg.n_kv_heads % n:
-        raise ValueError(f"--model_parallel {n}: {what} has {cfg.n_heads} query and {cfg.n_kv_heads} kv heads, "
-                         f"which {n} ranks do not divide")
+def check_tp_split(cfg, n: int, what: str, talker: bool = False) -> None:
+    """Raise where *n* ranks do not divide a dim that the shard splits, as
+    the JAX registry's ``device_put`` of a sharded tree raises: the MLP's
+    hidden width and (but for the talker, whose codec embedding stays
+    whole) the vocabulary.  Heads that *n* does not divide are no error:
+    every rank keeps the whole attention block (``decoder_lm.heads_split``)."""
+    split = {"hidden width": cfg.d_ff, **({} if talker else {"vocabulary": cfg.vocab_size})}
+    for name, size in split.items():
+        if size % n:
+            raise ValueError(f"--model_parallel {n}: {what} has a {name} of {size}, which {n} ranks do not divide")
 
 
 def _tp_shard_lm(params, cfg, tp, what: str, talker: bool = False):
@@ -317,16 +321,20 @@ def _tp_shard_lm(params, cfg, tp, what: str, talker: bool = False):
     separate ``codec_head``) and keeps its codec embedding whole.  Called on
     a quantized tree: the whole tree is quantized first, so a row-parallel
     shard keeps the scales of its whole input dim, as JAX's quantize of a
-    sharded tree computes them."""
+    sharded tree computes them.  Where *tp*'s ranks do not divide the
+    heads, the attention block stays whole on every rank
+    (``decoder_lm.heads_split``)."""
     from s2s_tpu_torch.models import decoder_lm
     from s2s_tpu_torch.models.common import P
     from s2s_tpu_torch.parallel.mesh import local_shard
 
-    check_tp_heads(cfg, tp.size, what)
+    check_tp_split(cfg, tp.size, what, talker)
     specs = decoder_lm.param_shardings(cfg)
     if talker:
         specs.pop("lm_head", None)
         specs["embed"] = P()
+    if not decoder_lm.heads_split(cfg, tp.size):
+        specs["layers"].update({name: P(None, None, None) for name in ("wq", "wk", "wv", "wo")})
     logger.info("TP-sharding %s: rank %d of %d", what, tp.rank, tp.size)
     return local_shard(params, specs, tp.rank, tp.size)
 
@@ -336,8 +344,7 @@ def _build_lm_engine(config, device: torch.device, tp=None):
     in the JAX package, the batched LM quantizes random init too; with *tp*
     the engine runs on this rank's shard of the quantized tree, and no rank
     keeps the whole tree (the handler gets None: its single-session path,
-    sampled decode, is refused under tensor parallelism, see
-    ``builder.check_supported``)."""
+    sampled decode, runs on the engine's single-session programs)."""
     from s2s_tpu_torch.llm.local_backend import lm_config
     from s2s_tpu_torch.models import decoder_lm
     from s2s_tpu_torch.parallel.session_scheduler import BatchedLMScheduler

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import logging
 import threading
+import weakref
 from typing import Any, Callable
 
 import numpy as np
@@ -121,6 +122,14 @@ class _Future:
         return self._value
 
 
+def _weak_batch_step(service) -> Callable[[list[int], list[Any]], list[Any]]:
+    """*service*'s ``_run_batch`` through a weak reference: the batcher that
+    *service* holds must not hold *service* back, or the two form a cycle
+    that keeps the service and its weights until a garbage collection."""
+    ref = weakref.ref(service)
+    return lambda slots, arrays: ref()._run_batch(slots, arrays)
+
+
 class BatchedSileroVAD:
     """Shared Silero service: all sessions' 32 ms ticks in one call.
 
@@ -140,7 +149,7 @@ class BatchedSileroVAD:
         self.max_slots = max_slots
         self._state = silero_vad.SileroState.create(max_slots, device=self.device)
         self._state_lock = threading.Lock()
-        self._batcher = MicroBatcher(self._run_batch)
+        self._batcher = MicroBatcher(_weak_batch_step(self))
 
     def masked_step(self, packed: torch.Tensor) -> torch.Tensor:
         """Step every slot of the carry with *packed* (max_slots, CHUNK + 1)
@@ -185,7 +194,7 @@ class BatchedParakeetSTT:
         self.params = params
         self.cfg = cfg
         self.device = torch.device(device)
-        self._batcher = MicroBatcher(self._run_batch, max_batch=max_batch, window_s=window_s)
+        self._batcher = MicroBatcher(_weak_batch_step(self), max_batch=max_batch, window_s=window_s)
 
     def transcribe(self, padded: np.ndarray, n_valid: int) -> list[int]:
         """One utterance window (zero-padded to its bucket) -> token ids."""

@@ -110,6 +110,12 @@ class WhisperSTTHandler(BaseSTTHandler):
         self.transcribe_fn = transcribe_fn
         self.streamer = ProgressiveStreamer(decode_fn=self.transcribe_fn, sample_rate=sample_rate)
 
+    def cleanup(self) -> None:
+        """At the end of the stage's thread: drop the transcriber, whose
+        closure holds this handler (and its model or batched service) in a
+        cycle that would otherwise last until a garbage collection."""
+        self.streamer = self.transcribe_fn = None
+
     def _build_transcriber(self, model_size, params, tokenizer, max_new_tokens):
         from s2s_tpu_torch.models import whisper
         from s2s_tpu_torch.ops.log_mel import log_mel_spectrogram

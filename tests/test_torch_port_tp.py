@@ -9,20 +9,29 @@ and the serve.  The weights are the JAX package's tiny trees (from
 ``jax.random`` keys), carried across by ``s2s_tpu_torch.weights``.  Checked:
 
 - the flag parses; too few devices raise (``mesh.tp_layout`` and the CLI
-  build); heads that the ranks do not divide raise before any rank starts,
-  naming the model; ``int8-dyn`` on a split tree raises;
+  build); a split dim that the ranks do not divide raises before any rank
+  starts, naming the model;
 - ``mesh.local_shard`` of the port's tree is bit-equal, leaf by leaf, to
   ``np.split`` of the JAX tree on the axes ``param_shardings`` names, for
   bf16 and int8 trees (payloads and every scale, a column-parallel weight's
-  scales split with its columns); the int8 tree quantized whole equals
-  JAX's quantize of the tree sharded on a (1, 2) mesh; a row-parallel
-  packed int4 shard unpacks to exactly the slice of JAX's unpacked values;
+  scales split with its columns); the int8 and W8A8 (``int8-dyn``) trees
+  quantized whole equal JAX's quantize of the tree sharded on a (1, 2)
+  mesh; a row-parallel packed int4 shard unpacks to exactly the slice of
+  JAX's unpacked values; where the ranks do not divide the heads, each
+  holds the whole attention block and all the kv heads;
+- the W8A8 plain version given the rows' absmax over a wider K
+  (``row_amax``) is bit-equal to JAX's reference over that K;
 - every tail program at one rank with a counting group issues no
   collective and returns what it returns without the group;
 - over two ranks, the tiny f32 LM's prefill and tail chunk are token-exact
-  against JAX's single-device programs in f32, int8 and int4, and the tiny
-  talker's prefill and 4-frame chunk within 2e-3 of JAX's
-  (``tests/test_sharded_inference.py``'s bound);
+  against JAX's single-device programs in f32, int8, ``int8-dyn`` (the
+  rows' absmax reduced across the ranks) and int4, and the tiny talker's
+  prefill and 4-frame chunk, as it is and in ``int8-dyn``, within 2e-3 of
+  JAX's (``tests/test_sharded_inference.py``'s bound); 16 sampled tokens
+  through the handler on the engine's single-session programs equal one
+  rank's with the same seed; over four ranks (which do not divide the 2 kv
+  heads) the LM's chunk is token-exact against JAX's (1, 4) mesh, the
+  attention block whole on every rank;
 - engines built by the registry with ``--model_parallel 2`` (warm-up run
   and mirrored) are token-equal to the port's one-rank engines and to the
   JAX registry's, and their audio equal to both within 2e-3; the follower's
@@ -30,7 +39,9 @@ and the serve.  The weights are the JAX package's tiny trees (from
   heads of the one-rank engine's caches (per layer and head sums, 1e-5);
 - a voice turn through the WebSocket at ``--model_parallel 2`` with the
   JAX test's seams (an energy VAD and a fixed transcript,
-  ``tests/test_tp_serving.py``) is answered with audio;
+  ``tests/test_tp_serving.py``) is answered with audio; text turns are
+  answered with ``--llm_quantize int8-dyn``, ``--tts_quantize int8-dyn``,
+  ``--llm_gen_temperature 0.7`` and at ``--model_parallel 4``;
 - after the serve stops, the follower has exited 0, its groups and the
   leader's are shut down, and the process has no process group of world
   size above 1; a follower whose leader is gone exits non-zero at once.
@@ -150,30 +161,14 @@ def test_too_few_devices_raise(where):
     assert not dist.is_initialized()
 
 
-def test_heads_the_ranks_do_not_divide_raise_before_any_rank_starts():
+def test_a_split_dim_the_ranks_do_not_divide_raises_before_any_rank_starts():
     from s2s_tpu_torch import cli
 
-    # the tiny LM has 4 query and 2 kv heads
-    with pytest.raises(ValueError, match="--llm_model_size tiny has 4 query and 2 kv heads, which 4 ranks"):
-        cli.build_from_argv(["--device", "cpu", *FLAGS, "--model_parallel", "4"], threading.Event(),
-                            tp_layout=mesh.TPLayout(("cpu",) * 4, "gloo"))
-
-
-@pytest.mark.parametrize("flag", ["--llm_quantize", "--tts_quantize"])
-def test_int8_dyn_on_a_split_tree_raises(flag):
-    from s2s_tpu_torch import cli
-
-    with pytest.raises(ValueError, match=f"{flag} int8-dyn with --model_parallel 2"):
-        cli.build_from_argv(["--device", "cpu", *FLAGS, flag, "int8-dyn", "--model_parallel", "2"],
-                            threading.Event(), tp_layout=TWO_CPU_RANKS)
-
-
-def test_sampled_decode_under_tensor_parallelism_raises():
-    from s2s_tpu_torch import cli
-
-    with pytest.raises(ValueError, match="--model_parallel 2: sampled decode"):
-        cli.build_from_argv(["--device", "cpu", *FLAGS, "--llm_gen_temperature", "0.7", "--model_parallel", "2"],
-                            threading.Event(), tp_layout=TWO_CPU_RANKS)
+    # the tiny LM's MLP is 128 wide
+    with pytest.raises(ValueError, match="--llm_model_size tiny has a hidden width of 128, which 3 ranks do not"):
+        cli.build_from_argv(["--device", "cpu", *FLAGS, "--model_parallel", "3"], threading.Event(),
+                            tp_layout=mesh.TPLayout(("cpu",) * 3, "gloo"))
+    assert not dist.is_initialized()
 
 
 # ── shards against the JAX tree ──────────────────────────────────────
@@ -237,6 +232,32 @@ def test_int8_shards_equal_np_split_and_jax_shard_then_quantize(trees, rank):
     assert quantized == 7  # wq wk wv wo w_gate w_up w_down
 
 
+@pytest.mark.parametrize("rank", range(WORLD))
+def test_int8_dyn_shards_equal_jax_shard_then_quantize(trees, rank):
+    """``int8-dyn``'s W8A8 leaves: the port's tree quantized whole, then the
+    rank's shard, against JAX's quantize (``act_quant``) of the tree
+    sharded on a (1, 2) mesh, split as JAX places it: the same types and
+    bits, so each row-parallel shard keeps the whole input dim's scales."""
+    cfg, jp = trees["cfg"], trees["lm"]
+    jmesh_ = jmesh.make_mesh(jax.devices()[:WORLD], data=1, model=WORLD)
+    then = _flat(jquant.quantize_tree(jmesh.shard_params(jp, jdl.param_shardings(cfg), jmesh_), min_size=0,
+                                      act_quant=True))
+    specs = _flat(jdl.param_shardings(cfg))
+    port = quantize_tree(weights.tree_to_torch(jp, "cpu"), min_size=0, act_quant=True)
+    shard = _flat(mesh.local_shard(port, tdl.param_shardings(cfg), rank, WORLD))
+    dyn = 0
+    for key, leaf in shard.items():
+        axis = _model_axis(specs[key])
+        if not isinstance(leaf, QUANT_TYPES):
+            continue
+        assert type(leaf).__name__ == type(then[key]).__name__ == "DynQuantWeight", key
+        dyn += 1
+        scale_axis = None if axis is None or axis == leaf.q.ndim - 2 else then[key].scale.ndim - 1
+        assert np.array_equal(_bits(leaf.q), _bits(_jax_split(then[key].q, axis, rank))), key
+        assert np.array_equal(_bits(leaf.scale), _bits(_jax_split(then[key].scale, scale_axis, rank))), key
+    assert dyn == 7
+
+
 def test_int4_row_parallel_shards_unpack_to_the_jax_slice(trees):
     """A packed byte holds rows k and k + K/2: wo and w_down (split on their
     input dim) are unpacked, sliced and re-packed per rank; the
@@ -263,6 +284,65 @@ def test_int4_row_parallel_shards_unpack_to_the_jax_slice(trees):
                 assert np.array_equal(_bits(got.scale), _bits(_jax_split(want.scale, 1, rank))), key
 
 
+class RankOf:
+    """Rank *rank* of *size*, as ``_tp_shard_lm`` and the head counts see a group."""
+
+    def __init__(self, rank: int, size: int) -> None:
+        self.rank, self.size = rank, size
+
+
+@pytest.mark.parametrize("rank", range(4))
+def test_ranks_that_do_not_divide_the_heads_hold_the_whole_attention_block(trees, rank):
+    """Four ranks of the tiny LM (4 query, 2 kv heads): every rank holds wq,
+    wk, wv and wo whole (bf16 and int8 leaves) and all the kv heads; the MLP
+    and the vocabulary are still split.  SmolLM2-360M's 15/5 heads are kept
+    whole at two ranks."""
+    from s2s_tpu_torch.registry import _tp_shard_lm
+
+    cfg = trees["tcfg"]
+    whole = weights.tree_to_torch(trees["lm"], "cpu")
+    for tree in (whole, quantize_tree(whole, min_size=0)):
+        shard = _tp_shard_lm(tree, cfg, RankOf(rank, 4), "the tiny LM")
+        for name in ("wq", "wk", "wv", "wo"):
+            got, want = shard["layers"][name], tree["layers"][name]
+            for a, b in zip(got if isinstance(got, QUANT_TYPES) else [got],
+                            want if isinstance(want, QUANT_TYPES) else [want]):
+                assert torch.equal(a, b), name
+        gate = shard["layers"]["w_gate"]
+        assert tdl.out_width(gate) == cfg.d_ff // 4 and shard["embed"].shape[0] == cfg.vocab_size // 4
+    assert tdl.local_kv_heads(cfg, RankOf(rank, 4)) == cfg.n_kv_heads
+    assert tdl.local_kv_heads(cfg, RankOf(rank, 2)) == cfg.n_kv_heads // 2
+    assert not tdl.heads_split(tdl.DecoderLMConfig.smollm2_360m(), 2)
+
+
+@pytest.mark.parametrize("b", [8, 17, 64])
+def test_int8_matmul_dyn_reference_with_row_amax_equals_jax_over_the_whole_k(b):
+    """A row-parallel shard's W8A8 product: the plain version on the first
+    half of K, given each row's absmax over the whole K (the second half
+    larger in some rows), is bit-equal to JAX's reference over the whole K
+    with the second half's weights zero."""
+    from s2s_tpu.ops import int8_matmul as jmm
+    from s2s_tpu_torch.ops import int8_matmul as tmm
+
+    rng = np.random.default_rng(b)
+    k, n = 256, 128
+    x = rng.standard_normal((b, 2 * k)).astype(np.float32)
+    x[::3, k:] *= 8.0
+    x[1] = 0.0
+    q = rng.integers(-127, 128, (2 * k, n)).astype(np.int8)
+    q[k:] = 0
+    s = (rng.random(n) * 0.01 + 1e-4).astype(np.float32)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    row_amax = xb.float().abs().amax(dim=1)
+    got = tmm.int8_matmul_dyn_reference(xb[:, :k].contiguous(), torch.from_numpy(q[:k]), torch.from_numpy(s),
+                                        row_amax)
+    want = np.asarray(jmm.int8_matmul_dyn_reference(jnp.asarray(x, jnp.bfloat16), jnp.asarray(q), jnp.asarray(s)),
+                      np.float32)
+    np.testing.assert_array_equal(got.float().numpy(), want)
+    local = tmm.int8_matmul_dyn_reference(xb[:, :k].contiguous(), torch.from_numpy(q[:k]), torch.from_numpy(s))
+    assert not torch.equal(local, got)  # the rows' own absmax would quantize otherwise
+
+
 # ── one rank: a counting group issues nothing ────────────────────────
 
 
@@ -275,6 +355,10 @@ class CountingGroup:
         self.calls = 0
 
     def all_reduce(self, t):
+        self.calls += 1
+        return t
+
+    def all_max(self, t):
         self.calls += 1
         return t
 
@@ -331,10 +415,8 @@ def test_one_rank_with_a_counting_group_issues_no_collective(trees, model):
 # ── two ranks: the programs against the JAX package ──────────────────
 
 
-@pytest.fixture(scope="module")
-def tp_run(trees, tmp_path_factory):
-    """The worker ranks' results (rank 0's files), run once for the file."""
-    out = tmp_path_factory.mktemp("tp")
+def _run_worker(trees, out: Path, world: int, *mode: str) -> dict:
+    """The worker's *world* ranks on *trees* (rank 0's files)."""
     cfg = trees["cfg"]
     fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg) if f.name != "dtype"}
     arrays = {**{f"lm/{k}": v for k, v in flatten(trees["lm"]).items()},
@@ -343,9 +425,9 @@ def tp_run(trees, tmp_path_factory):
     port = _free_port()
     # one thread a rank: the ranks share the host with the other test workers
     env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen([sys.executable, str(WORKER), str(out), str(rank), str(WORLD), str(port)], cwd=ROOT,
-                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for rank in range(WORLD)]
+    procs = [subprocess.Popen([sys.executable, str(WORKER), str(out), str(rank), str(world), str(port), *mode],
+                              cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for rank in range(world)]
     deadline = time.monotonic() + TIME_LIMIT_S
     try:
         for p in procs:
@@ -363,6 +445,18 @@ def tp_run(trees, tmp_path_factory):
     return result
 
 
+@pytest.fixture(scope="module")
+def tp_run(trees, tmp_path_factory):
+    """The worker's two ranks (the programs), run once for the file."""
+    return _run_worker(trees, tmp_path_factory.mktemp("tp"), WORLD)
+
+
+@pytest.fixture(scope="module")
+def tp4_run(trees, tmp_path_factory):
+    """The worker's LM chunk over four ranks, which do not divide the kv heads."""
+    return _run_worker(trees, tmp_path_factory.mktemp("tp4"), 4, "lm")
+
+
 def _jax_chunk(p, cfg, prompt) -> np.ndarray:
     """``tests/test_tp_serving.py``'s chunk on one device: slot 0's prefill,
     then 6 tail steps with slot 1 idle."""
@@ -374,29 +468,76 @@ def _jax_chunk(p, cfg, prompt) -> np.ndarray:
     return np.asarray(toks[:, 0])
 
 
-@pytest.mark.parametrize("mode", ["f32", "int8", "int4"])
+@pytest.mark.parametrize("mode", ["f32", "int8", "int8-dyn", "int4"])
 def test_two_rank_lm_chunk_is_token_exact_against_jax(trees, tp_run, mode):
     cfg, jp = trees["cfg"], trees["lm"]
     if mode != "f32":
-        jp = jquant.quantize_tree(jp, min_size=0, bits=4 if mode == "int4" else 8)
+        jp = jquant.quantize_tree(jp, min_size=0, bits=4 if mode == "int4" else 8, act_quant=mode == "int8-dyn")
     want = _jax_chunk(jp, cfg, trees["prompt"])
     got = tp_run["arrays"][f"lm_{mode}"]
     assert np.array_equal(got, want), (got, want)
-    # every chunk step summed wo's and w_down's partials on both layers, the embedding and the logits
-    assert tp_run["collectives"]["lm"] == 3 * (1 + 6) * (2 * cfg.n_layers + 2)
+    # every chunk step summed wo's and w_down's partials on both layers, the embedding and the logits;
+    # in int8-dyn the prefill's 16 rows (W8A8; the tail's 2 take W8A16) also reduced wo's and w_down's absmax
+    assert tp_run["collectives"][f"lm_{mode}"] == (1 + 6) * (2 * cfg.n_layers + 2) + (
+        2 * cfg.n_layers if mode == "int8-dyn" else 0)
+
+
+def _jax_talker_chunk(jp, qcfg, text) -> np.ndarray:
+    state = jdl.init_decode_state(qcfg.lm, 1, max_t=64)
+    tstate = jq.talker_prefill(jp, qcfg, jnp.asarray(text), jp["speakers"][jnp.asarray([0])], state)
+    audio, _eos, _tstate, _ctx = jq.decode_chunk_audio(jp, qcfg, tstate, jnp.zeros((0, qcfg.n_q), jnp.int32), 4)
+    return np.asarray(audio)
 
 
 def test_two_rank_talker_chunk_is_within_2e_3_of_jax(trees, tp_run):
-    qcfg, jp = trees["qcfg"], trees["tts"]
-    state = jdl.init_decode_state(qcfg.lm, 1, max_t=64)
-    tstate = jq.talker_prefill(jp, qcfg, jnp.asarray(trees["text"]), jp["speakers"][jnp.asarray([0])], state)
-    audio, _eos, _tstate, _ctx = jq.decode_chunk_audio(jp, qcfg, tstate, jnp.zeros((0, qcfg.n_q), jnp.int32), 4)
-    want = np.asarray(audio)
-    got = tp_run["arrays"]["talker_audio"]
+    qcfg = trees["qcfg"]
+    want = _jax_talker_chunk(trees["tts"], qcfg, trees["text"])
+    got = tp_run["arrays"]["talker_f32"]
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, atol=TALKER_ATOL)
     # the talker's blocks only: its codec embedding and head are whole on every rank
-    assert tp_run["collectives"]["tts"] == (1 + 4) * 2 * qcfg.lm.n_layers
+    assert tp_run["collectives"]["talker_f32"] == (1 + 4) * 2 * qcfg.lm.n_layers
+
+
+def test_two_rank_int8_dyn_talker_chunk_is_within_2e_3_of_jax(trees, tp_run):
+    """The talker quantized W8A8 (whole, then split) over two ranks against
+    JAX's quantize of the talker on one device; the prefill's rows take W8A8
+    with the absmax reduced across the ranks."""
+    qcfg, jp = trees["qcfg"], trees["tts"]
+    jp = dict(jp, talker=jquant.quantize_tree(jp["talker"], min_size=0, act_quant=True))
+    want = _jax_talker_chunk(jp, qcfg, trees["text"])
+    got = tp_run["arrays"]["talker_int8-dyn"]
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=TALKER_ATOL)
+    assert tp_run["collectives"]["talker_int8-dyn"] == (1 + 4) * 2 * qcfg.lm.n_layers + 2 * qcfg.lm.n_layers
+
+
+def test_sampled_tokens_over_two_ranks_equal_one_rank(tp_run):
+    """The handler's sampled decode (temperature 0.7, its generator seeded
+    0) on the engine's single-session programs over two ranks draws the
+    tokens one rank's handler draws on the whole tree."""
+    sampled, one = tp_run["sampled"], tp_run["one_rank_sampled"]
+    assert len(sampled) == 16 and sampled == one, (sampled, one)
+
+
+def test_tiny_lm_at_four_ranks_keeps_attention_whole_and_is_token_exact_against_jax(trees, tp4_run):
+    """Four ranks do not divide the tiny LM's 2 kv heads: each rank keeps
+    the attention block whole (no sum after wo) and the MLP's quarter; the
+    chunk's tokens are JAX's on its (1, 4) mesh, which splits those columns
+    mid-head, and on one device."""
+    cfg, jp = trees["cfg"], trees["lm"]
+    mesh4 = jmesh.make_mesh(jax.devices()[:4], data=1, model=4)
+    want = _jax_chunk(jmesh.shard_params(jp, jdl.param_shardings(cfg), mesh4), cfg, trees["prompt"])
+    assert np.array_equal(want, _jax_chunk(jp, cfg, trees["prompt"]))
+    got = tp4_run["arrays"]["lm_f32"]
+    assert np.array_equal(got, want), (got, want)
+    widths = tp4_run["widths"]
+    hd = cfg.d_model // cfg.n_heads
+    assert widths["wq"][1:] == [cfg.d_model, cfg.n_heads * hd] and widths["wo"][1:] == [cfg.n_heads * hd, cfg.d_model]
+    assert widths["wk"][2] == cfg.n_kv_heads * hd and widths["w_gate"][2] == cfg.d_ff // 4
+    assert tp4_run["kv_heads"] == cfg.n_kv_heads
+    # w_down's partials on both layers, the embedding and the logits; wo is whole
+    assert tp4_run["collectives"]["lm_f32"] == (1 + 6) * (cfg.n_layers + 2)
 
 
 # ── the registry's engines and the serve ─────────────────────────────
@@ -595,6 +736,61 @@ def test_voice_turn_at_two_ranks_is_answered(served):
     assert deltas and sum(len(base64.b64decode(e["delta"])) for e in deltas) > 0, types
     assert events[-1]["type"] == "response.done" and events[-1]["response"]["status"] == "completed", types
     assert served["runtime"].consistent() == {"lm": True, "tts": True}
+
+
+async def _text_turn(url: str, text: str, max_s: float) -> list[dict]:
+    import websockets.asyncio.client as ws_client
+
+    events: list[dict] = []
+    async with ws_client.connect(url, max_size=None) as ws:
+        events.append(json.loads(await asyncio.wait_for(ws.recv(), 10)))
+        await ws.send(json.dumps({"type": "conversation.item.create", "item": {
+            "type": "message", "role": "user", "content": [{"type": "input_text", "text": text}]}}))
+        await ws.send(json.dumps({"type": "response.create", "response": {}}))
+        deadline = asyncio.get_running_loop().time() + max_s
+        while asyncio.get_running_loop().time() < deadline:
+            event = json.loads(await asyncio.wait_for(ws.recv(), max_s))
+            events.append(event)
+            if event["type"] == "response.done":
+                break
+    return events
+
+
+#: flags that ``--model_parallel`` takes since the port reduces the W8A8 absmax across ranks, runs sampled
+#: decode on the engine's single-session programs and keeps undivided heads whole (the tiny trees sit under the
+#: quantize floor, so the quantize modes take their code path on exact weights, as the JAX package's
+#: ``test_tp_composes_with_quantize_flags`` does; the W8A8 numerics over ranks are the worker's)
+COMBOS = {"llm-int8-dyn": (["--llm_quantize", "int8-dyn"], WORLD), "tts-int8-dyn": (["--tts_quantize", "int8-dyn"], WORLD),
+          "sampled": (["--llm_gen_temperature", "0.7"], WORLD), "four-ranks": ([], 4)}
+
+
+@pytest.mark.parametrize("combo", sorted(COMBOS))
+def test_text_turn_at_model_parallel_is_answered(combo):
+    from s2s_tpu_torch import builder, cli
+    from s2s_tpu_torch.registry import GLOBAL_MODEL_CACHE
+
+    extra, n = COMBOS[combo]
+    stop = threading.Event()
+    with _OneThreadFollowers():
+        manager, server, _ = cli.build_from_argv(["--device", "cpu", *FLAGS, *extra, "--model_parallel", str(n)], stop,
+                                                 tp_layout=mesh.TPLayout(("cpu",) * n, "gloo"))
+    handler = builder.tp_handler_of(manager)
+    followers = list(handler.runtime.procs)
+    manager.start()
+    try:
+        assert server.started.wait(30)
+        events = asyncio.run(_text_turn(f"ws://127.0.0.1:{server.bound_port}/v1/realtime", "Hello there", 60.0))
+    finally:
+        stop.set()
+        manager.stop()
+        assert handler.closed.wait(60)
+        GLOBAL_MODEL_CACHE.clear()
+    types = [e["type"] for e in events]
+    deltas = [e for e in events if e["type"] == "response.output_audio.delta"]
+    assert deltas and sum(len(base64.b64decode(e["delta"])) for e in deltas) > 0, types
+    assert events[-1]["type"] == "response.done" and events[-1]["response"]["status"] == "completed", types
+    assert handler.runtime.consistent() == {"lm": True, "tts": True}
+    assert len(followers) == n - 1 and all(p.returncode == 0 for p in followers)
 
 
 def test_a_follower_whose_leader_is_gone_exits_non_zero(tmp_path):

@@ -22,11 +22,13 @@ torch models of the kernels' sum order (``s2s_tpu_torch/ops/weight_only.py``,
   zeroed padding rows, k32 products summed per warpgroup, the int32
   partials combined in rank order; bit-equal to the plain version and to
   the JAX package's ``int8_matmul_dyn_reference`` at B 8, 17 and 64, at the
-  planned cluster size and others.  The table quantize equals IEEE division
-  and round-half-even at every finite bf16 value.  The C entry point's K
-  limit keeps the int32 sums exact and covers every K that ``supports``
-  admits.
-- The build digest covers the shared headers.
+  planned cluster size and others; given the rows' absmax over a wider K
+  (``row_amax``, a row-parallel shard's), bit-equal to the plain version
+  with the same maxima at one rank's shapes of two.  The table quantize
+  equals IEEE division and round-half-even at every finite bf16 value.  The
+  C entry point's K limit keeps the int32 sums exact and covers every K
+  that ``supports`` admits.
+- The build digest covers the shared headers and the toolkit's version.
 - On the card (``cuda`` marker; skipped here): duplicated rows bit-equal and
   two calls on one input bit-equal, both weight-only formats, rows 1-64; the
   W8A8 entry point refuses a K past the int32 range.
@@ -297,7 +299,7 @@ def table_quantize(x: torch.Tensor, xscale: torch.Tensor) -> torch.Tensor:
 
 
 def w8a8_kernel_model(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
-                      plan: weight_only.Plan) -> torch.Tensor:
+                      plan: weight_only.Plan, row_amax: torch.Tensor | None = None) -> torch.Tensor:
     """The W8A8 kernel (``csrc/int8_matmul_dyn.cu``) on the CPU, in its
     order.  Each CTA of the cluster takes the maximum of |x| over its K
     slice; every CTA takes the maximum of the C slots and divides it by 127
@@ -307,14 +309,16 @@ def w8a8_kernel_model(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     to 0).  Each CTA sums q^T xq^T in k32 products into the sums of
     the warpgroup that takes the tile (tiles alternate between two), adds
     the two, and the C int32 partials are combined in rank order; then
-    ``(f32(acc) * xscale) * wscale``, one rounding.  Asserts that every
-    partial stays in int32."""
+    ``(f32(acc) * xscale) * wscale``, one rounding.  Given *row_amax* (a
+    row-parallel shard's maxima over the whole input dim), every CTA takes
+    those in place of the slots'.  Asserts that every partial stays in
+    int32."""
     b, k = x.shape
     tk = weight_only.TILES_K[weight_only.W8A8]
     ranges = weight_only.split_ranges(k, 1, plan.cluster, tk)
     x32 = x.float()
     slots = torch.stack([x32[:, a:z].abs().amax(dim=1) for a, z in ranges])
-    amax = slots.amax(dim=0)
+    amax = slots.amax(dim=0) if row_amax is None else row_amax
     xscale = torch.clamp_min(amax / torch.full_like(amax, 127.0), 1e-12)
     xt = torch.zeros(plan.rows, k, dtype=torch.bfloat16)
     xt[:b] = x
@@ -373,6 +377,26 @@ def test_w8a8_kernel_model_is_bit_equal_to_plain_and_jax(b):
             assert torch.equal(got[-1], got[0]) and not got[1].any()
 
 
+@pytest.mark.parametrize("b", [8, 32])
+def test_w8a8_kernel_model_with_the_rows_absmax_given_is_bit_equal_to_plain(b):
+    """One rank's row-parallel shapes of two: SmolLM2-1.7B's wo (1024 ->
+    2048) and w_down (4096 -> 2048), a 256-column slice, x one rank's half
+    of K and ``row_amax`` each row's maximum over both halves (the other
+    half larger in some rows): the planned cluster and 1, 5 and 8 CTAs give
+    the plain version's bits with the same maxima."""
+    for k in (1024, 4096):
+        x2, q, s = _w8a8_operands(b, 2 * k, 256, seed=b + k)
+        x2[::3, k:] = (x2[::3, k:].float() * 8).to(torch.bfloat16)
+        row_amax = x2.float().abs().amax(dim=1)
+        x, q = x2[:, :k].contiguous(), q[:k].contiguous()
+        want = tmm.int8_matmul_dyn_reference(x, q, s, row_amax)
+        assert not torch.equal(want, tmm.int8_matmul_dyn_reference(x, q, s))
+        plan = weight_only.launch_plan(b, k, 2048, SMS, SMEM, 1, weight_only.W8A8, clusters=CLUSTERS)
+        for c in sorted({plan.cluster, 1, 5, 8} & set(range(1, k // 128 + 1))):
+            got = w8a8_kernel_model(x, q, s, dataclasses.replace(plan, cluster=c), row_amax)
+            assert torch.equal(got, want), (k, c)
+
+
 def test_w8a8_table_quantize_is_ieee_division_at_every_bf16_value():
     """At every finite bf16 value a row of scale s can hold (|x| <= 127 s),
     the table quantize equals clip(rint(x / s)) with x / s divided by IEEE
@@ -424,6 +448,17 @@ def test_library_name_covers_the_shared_headers(tmp_path, monkeypatch):
     assert _build._library_path() not in (first, second)
 
 
+def test_library_name_changes_with_the_nvcc_version(monkeypatch):
+    """The toolkit's version (what ``nvcc --version`` prints) is part of the
+    library's name: another toolkit never loads a library built by the
+    first, and the same one finds its own build."""
+    monkeypatch.setattr(_build, "_nvcc_version", lambda: "Cuda compilation tools, release 12.8, V12.8.93\n")
+    first = _build._library_path()
+    assert _build._library_path() == first
+    monkeypatch.setattr(_build, "_nvcc_version", lambda: "Cuda compilation tools, release 12.9, V12.9.86\n")
+    assert _build._library_path() != first
+
+
 # --- on the card -------------------------------------------------------------
 
 @pytest.fixture
@@ -455,5 +490,5 @@ def test_cuda_w8a8_entry_point_refuses_k_past_the_int32_range(cuda_device):
     k = (_w8a8_k_limit() // 128 + 1) * 128
     plan = weight_only.launch_plan(8, k, 128, SMS, SMEM, 1, weight_only.W8A8)
     args = (ctypes.c_int * 6)(*dataclasses.astuple(plan))
-    err = _build.load().s2s_int8_matmul_dyn(None, None, None, None, 8, k, 128, args, None)
+    err = _build.load().s2s_int8_matmul_dyn(None, None, None, None, None, 8, k, 128, args, None)
     assert err == 1  # cudaErrorInvalidValue, before any tensor map or launch
