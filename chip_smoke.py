@@ -1,11 +1,16 @@
 """Smoke test of the PyTorch/CUDA port (``s2s_tpu_torch``) on one NVIDIA GPU.
 
-Run from the repository root with no arguments: ``python3 chip_smoke.py``.
+Run from the repository root with no arguments: ``python3 chip_smoke.py``
+(``--depth-cuts`` runs the phase that the run cuts in depth at its cut and
+its whole depth instead, and prints their seconds: ``depth_cuts``).
 Phases, each printed on its own line:
 
 1. the card (``nvidia-smi`` name and power limit, torch and CUDA versions);
    no CUDA device -> exit 1 before anything else;
-2. build every kernel from ``s2s_tpu_torch/csrc/`` with nvcc;
+2. build every kernel from ``s2s_tpu_torch/csrc/`` with nvcc; then the
+   Whisper serve's checkpoints drawn and written, and their conversions
+   started in processes of their own, which run on the host beside the
+   kernel phases (``start_serve_checkpoints``; phase 15 collects them);
 3. each kernel against its plain PyTorch version at the serving path's
    shapes, in bf16, bound 2 bf16 ulps of max|plain|; device times of both,
    taken in turns (plain, kernel, kernel, plain) with CUDA graphs over
@@ -14,7 +19,8 @@ Phases, each printed on its own line:
    duplicated row bit-equal, ``torch._weight_int8pack_mm`` and the bf16
    ``torch.matmul`` of the dequantized weight timed beside it, and the other
    regime's time at up to 8 rows; also at one rank's shapes of two,
-   ``tp_serve``'s), then ``decode_attention`` (tail form at the SmolLM2-1.7B and Qwen3-TTS
+   ``tp_serve``'s; and at the 16 rows of ``harnesses``'s fused layer
+   mixes, ``HARNESS_INT8_SHAPES``), then ``decode_attention`` (tail form at the SmolLM2-1.7B and Qwen3-TTS
    talker shapes, the talker at its max_seq_len 4096, whose keys stream
    through a ring of tiles, one rank's heads of two, and SmolLM2-360M's
    15/5 heads at B 4 and 8 (G = 3), with ``F.scaled_dot_product_attention`` timed
@@ -102,7 +108,7 @@ Phases, each printed on its own line:
 15. ``whisper_serve``: the single-session serve with energy VAD, Smart Turn
    on and full-width distil-large-v3 Whisper (``WHISPER_FLAGS``), after the
    earlier serves shut down, from checkpoints the conversion tool wrote
-   (``write_serve_checkpoints``: SmolLM2-1.7B as BF16 safetensors,
+   (``start_serve_checkpoints``: SmolLM2-1.7B as BF16 safetensors,
    distil-large-v3 as F16 safetensors, Smart Turn as an F32 ``.pt``, drawn
    at the published shapes from torch seeds, each converted by ``python -m
    s2s_tpu_torch.tools.convert_checkpoint`` in a subprocess), so the
@@ -180,7 +186,8 @@ Phases, each printed on its own line:
    bf16 LM, f32 Mimi; its output conv scaled by ``POCKET_MIMI_OUT_SCALE``
    so random audio clears the silence trim) or ``--tts chatTTS``
    (``ChatTTSConfig()``, f32), each LM at ``POCKET_SERVE_LAYERS`` or
-   ``CHATTTS_SERVE_LAYERS`` (half its depth; ``served_tts_model``), with the same gate; each served synthesis
+   ``CHATTTS_SERVE_LAYERS`` (half its depth; ``served_tts_model``; ChatTTS's
+   speakers from ``--tts_seed 0``), with the same gate; each served synthesis
    timed inside the model's ``stream``; profiles of ``SYNTH_TEXTS`` (and,
    for Pocket, ``TEXT`` through a random voice prefix of
    ``POCKET_VOICE_ROWS`` rows; ``PROFILED_TEXTS`` for both, ``TEXT`` alone
@@ -286,7 +293,9 @@ Phases, each printed on its own line:
    ulps; at ``SLOT_FORM_HEADLINE`` the device times of the kernel, the plain
    version and ``F.scaled_dot_product_attention`` over the same keys;
 37. ``decode_programs`` (after phase 36): SmolLM2-1.7B int8 at full width
-   and depth, 16 slots prefilled from seeded prompts: ``decode_chunk_fused``
+   and half its depth (``DECODE_LAYERS``: 12 layers; the talker's 14, its
+   code predictor's 2), 16 slots
+   prefilled from seeded prompts: ``decode_chunk_fused``
    bitwise equal to ``decode_chunk_multi`` (tokens, masks, positions,
    caches), each launching the Pallas form layers x steps times and the tail
    form never; ``decode_chunk_multi`` against ``decode_chunk_tail``: the first
@@ -294,6 +303,21 @@ Phases, each printed on its own line:
    compared; then every row of ``s2s_tpu_torch/tools/microbench_decode.py``
    and ``microbench_tts.py`` (Qwen3-TTS-1.7B) in this process, each with the
    card's name and power limit, its launches a call checked by design;
+38. ``harnesses`` (after phase 15): the ports of the JAX package's last
+   harnesses in this process at full width, each model freed before the
+   next: ``s2s_tpu_torch/tools/microbench_weights.py`` (SmolLM2-1.7B's
+   linears at 16 rows, 24 layers, 8 steps as seven, four and two W8A16
+   calls a layer, the plain dequantized product and bf16 ``torch.matmul``,
+   each chunk a CUDA graph replayed: the W8A16 launches of one eager call
+   of each kernel mix exactly calls x 24 x 8, the seven-call replay within
+   ``HARNESS_MIX_REL`` of phase 9's W8A16 reading), ``microbench_bscale.py``
+   (the bf16 mix at 8 to 256 rows), ``benchmark_stt.py`` (``HARNESS_STT``:
+   distil-large-v3 Whisper, Parakeet-TDT-0.6B and Paraformer-large on 5 s
+   of audio with a progressive tick: one flash launch a Whisper encoder
+   layer and one log-mel a transcription) and ``benchmark_tts.py``
+   (``HARNESS_TTS``: Qwen3-TTS-1.7B int8 on the W8A16 kernel, Kokoro, MMS,
+   Pocket-TTS with its serve's output scale and ChatTTS, every row with
+   audio);
 35. ``soak`` (after phase 32): ``python -m s2s_tpu_torch.tools.run_soak``
    in a process of its own, which launches ``python -m s2s_tpu_torch.cli
    serve --device cuda`` with the JAX soak's serving flags at full width
@@ -332,7 +356,9 @@ operations over the card's peak for their type.
 After the phases come the card's ``nvidia-smi`` name and power limit, then,
 on the line before the last, a JSON object of the kernels (``launches`` from
 their main paths' serves, the decode-attention kernel's Pallas form
-(``decode_attention_slot``) from the ``decode_programs`` rows; the int8 and decode-attention entries also carry
+(``decode_attention_slot``) from the ``decode_programs`` rows; the int8,
+flash and log-mel entries carry ``harnesses``'s as ``harnesses_launches``;
+the int8 and decode-attention entries also carry
 the deployment, Kokoro, MMS, Pocket and ChatTTS serves' as
 ``deployment_serve_launches``, ``kokoro_serve_launches``,
 ``mms_serve_launches``, ``pocket_serve_launches`` and
@@ -464,6 +490,11 @@ ATTN_HEADLINE = ("smollm2-1.7b", 4, 6)
 #: (K, N) of the int8 linears: SmolLM2-1.7B, then the Qwen3-TTS talker and
 #: code predictor
 INT8_SHAPES = [(2048, 2048), (2048, 8192), (8192, 2048), (2048, 1024), (2048, 6144), (6144, 2048)]
+#: (K, N) of the fused products of ``harnesses``'s SmolLM2-1.7B layer mixes
+#: (gate/up as one call; q/k/v, o's input, gate and up as one), which no
+#: serve runs: int8_matmul at their rows only
+HARNESS_INT8_SHAPES = [(2048, 16384), (2048, 24576)]
+HARNESS_ROWS = 16
 #: (K, N) of one rank's int8 linears of two (tp_serve), where they differ
 #: from the above: SmolLM2-1.7B's wo, gate/up and down, then the talker's
 #: wk/wv, gate/up and down (wq's 2048 -> 1024 is above); int8_matmul only
@@ -680,6 +711,9 @@ CHECKPOINTS = {"smollm2-1.7b": ("smollm2-1.7b.safetensors", torch.bfloat16),
                "distil-large-v3": ("distil-large-v3.safetensors", torch.float16),
                "smart-turn": ("smart-turn.pt", torch.float32)}
 CONVERT_TIMEOUT_S = 300
+#: the processes this script starts that outlive a phase (the conversions of
+#: ``start_serve_checkpoints``), ended if the script fails first
+STARTED: list[subprocess.Popen] = []
 #: tensor parallelism (``--model_parallel``): two ranks.  On one card both
 #: run on it and their collectives go through gloo (NCCL takes one card a
 #: rank): the rehearsal of a serve over two cards.  With two or more cards
@@ -723,8 +757,23 @@ DECODE_REPEATS = (2, 1)
 #: the first step's logits, tail against legacy (f32 logits of bf16 hidden
 #: states; relative to max|legacy|): both attend the same keys in the same
 #: order through the same kernel, so they should agree to the bit; the bound
-#: allows a bf16 rounding of the hidden state to move through the 24 layers
+#: allows a bf16 rounding of the hidden state to move through the layers
 LEGACY_TAIL_LOGITS_REL = 1e-2
+#: ``decode_programs``'s depths, SmolLM2-1.7B's, the Qwen3-TTS talker's and
+#: its code predictor's layers (half of 24, 28 and 5; widths kept), so that
+#: the run keeps its time since ``harnesses`` joined it (PERF.md §4 gives
+#: its time at full depth)
+DECODE_LAYERS = (12, 14, 2)
+#: ``harnesses``: the STT rows (backend, model size), each on
+#: HARNESS_AUDIO_S of synthetic audio, one timed run and a progressive tick
+HARNESS_STT = (("whisper", "distil-large-v3"), ("parakeet-tdt", "0.6b"), ("paraformer", "default"))
+HARNESS_AUDIO_S = 5.0
+#: its TTS rows (backend, ``--quantize``), one timed run each, every model
+#: whole
+HARNESS_TTS = (("qwen3", "int8"), ("kokoro", None), ("facebookMMS", None), ("pocket", None), ("chatTTS", None))
+#: the seven-call W8A16 mix's replay against ``w8a8_microbench``'s reading of
+#: the same mix through the same kernel in the same run, relative
+HARNESS_MIX_REL = 0.15
 #: the Pallas form of decode attention (the slot write inside the launch) at
 #: the legacy programs' shapes: (shape, B, H, KV, hd, T): SmolLM2-1.7B's 16
 #: slots of 256 keys and its priority lane's 1 (``decode_chunk_slot``, whose
@@ -939,7 +988,8 @@ def _weight_only_library(fmt: str, q: torch.Tensor, scale: torch.Tensor):
 
 def weight_only_phase(dev: torch.device, fmt: str) -> dict:
     """``int8_matmul`` or ``int4_matmul`` against its plain version at the
-    served shapes x rows, within 2 bf16 ulps of max|plain|, with the launch
+    served shapes x rows (and, for ``int8_matmul``, ``harnesses``'s fused
+    layer mixes at their rows), within 2 bf16 ulps of max|plain|, with the launch
     plan printed, a duplicated row bit-equal to the row it copies, and device
     times (weights cycled past the L2) of the kernel, the plain version, the
     library call (``_weight_only_library``; null with its error where the
@@ -955,11 +1005,12 @@ def weight_only_phase(dev: torch.device, fmt: str) -> dict:
     planes = 1 if int8 else 2
     wrapper, ref = (mm.int8_matmul, mm.int8_matmul_reference) if int8 else (m4.int4_matmul, m4.int4_matmul_reference)
     entry = "s2s_int8_matmul" if int8 else "s2s_int4_matmul"
-    shapes, row_counts, headline_key = ((INT8_SHAPES + TP_INT8_SHAPES, INT8_ROWS, HEADLINE) if int8
-                                        else (INT4_SHAPES, INT4_ROWS, INT4_HEADLINE))
+    cases, headline_key = (([(k, n, INT8_ROWS) for k, n in INT8_SHAPES + TP_INT8_SHAPES]
+                            + [(k, n, [HARNESS_ROWS]) for k, n in HARNESS_INT8_SHAPES], HEADLINE) if int8
+                           else ([(k, n, INT4_ROWS) for k, n in INT4_SHAPES], INT4_HEADLINE))
     gen = torch.Generator(device=dev).manual_seed(0 if int8 else 7)
     rows, max_err, headline = [], 0.0, None
-    for k, n in shapes:
+    for k, n, row_counts in cases:
         weight_bytes = k * n // planes
         copies = max(2, -(-2 * L2_BYTES // weight_bytes))
         low = -127 if int8 else -128
@@ -1279,7 +1330,8 @@ def _legacy_program_checks(dev: torch.device, params, cfg) -> dict:
 
 def decode_programs_phase(dev: torch.device, card: list[str]) -> dict:
     """``decode_programs``: ``_legacy_program_checks``, then both
-    microbenchmark tools' rows in this process at full width and depth
+    microbenchmark tools' rows in this process at full width, SmolLM2-1.7B,
+    the talker and its code predictor at ``DECODE_LAYERS``
     (``s2s_tpu_torch/tools/microbench_{decode,tts}.py``: SmolLM2-1.7B and
     Qwen3-TTS-1.7B, int8 weight-only, random weights from seed 0), each
     printed with the card: wall, device span and busy seconds, the calls
@@ -1293,7 +1345,7 @@ def decode_programs_phase(dev: torch.device, card: list[str]) -> dict:
     from s2s_tpu_torch.tools import microbench_decode as mbd
     from s2s_tpu_torch.tools import microbench_tts as mbt
 
-    cfg = decoder_lm.DecoderLMConfig.smollm2_1_7b()
+    cfg = dataclasses.replace(decoder_lm.DecoderLMConfig.smollm2_1_7b(), n_layers=DECODE_LAYERS[0])
     params = mbd.lm_params(cfg, dev)
     checks = _legacy_program_checks(dev, params, cfg)
     phase("decode_programs_checks", card=card, **checks)
@@ -1303,6 +1355,8 @@ def decode_programs_phase(dev: torch.device, card: list[str]) -> dict:
     del params
     torch.cuda.empty_cache()
     tcfg = qwen3_tts.Qwen3TTSConfig.qwen3_tts_12hz_1_7b()
+    tcfg = dataclasses.replace(tcfg, lm=dataclasses.replace(tcfg.lm, n_layers=DECODE_LAYERS[1]),
+                               cp=dataclasses.replace(tcfg.cp, n_layers=DECODE_LAYERS[2]))
     tts_rows = mbt.run(mbt.tts_params(tcfg, dev), tcfg, tts_sizes, dev, repeats=DECODE_REPEATS[0])
     torch.cuda.synchronize()
     launches = da.decode_attention.launches
@@ -2069,7 +2123,8 @@ def w8a8_microbench_phase(dev: torch.device, dyn_rows: list[dict]) -> dict:
     through the W8A8 kernel and through the W8A16 kernel, in turns; GB/s of
     int8 weights read.  Returns the kernel's row of ``int8_dyn_phase`` at
     the microbenchmark's 16 x 2048 x 8192 for the JSON line (its library
-    call is null: ``torch._int_mm`` takes more than 16 rows)."""
+    call is null: ``torch._int_mm`` takes more than 16 rows), with the mix's
+    W8A16 reading (``seven_calls_w8a16_s``) for ``harnesses``."""
     from s2s_tpu_torch.ops import int8_matmul as mm
 
     b, d, ff, layers, steps = 16, 2048, 8192, 24, 8
@@ -2107,7 +2162,8 @@ def w8a8_microbench_phase(dev: torch.device, dyn_rows: list[dict]) -> dict:
           seven_calls_w8a8_gbps=nbytes / w8a8_s / 1e9, seven_calls_w8a16_s=w8a16_s,
           seven_calls_w8a16_gbps=nbytes / w8a16_s / 1e9, weight_bytes=nbytes, calls=7 * layers * steps)
     check(math.isfinite(rel) and rel < 0.05, f"W8A8 error against f32 {rel}")
-    return next(row for row in dyn_rows if (row["B"], row["K"], row["N"]) == (b, d, ff))
+    return {**next(row for row in dyn_rows if (row["B"], row["K"], row["N"]) == (b, d, ff)),
+            "seven_calls_w8a16_s": w8a16_s}
 
 
 def tiny_quant_parity_phase(dev: torch.device) -> None:
@@ -3398,18 +3454,18 @@ def convert_parity_phase(dev: torch.device) -> None:
           convert_s=convert_s, safetensors_round_trip_bytes=round_trips)
 
 
-def write_serve_checkpoints(dev: torch.device) -> dict[str, dict]:
+def start_serve_checkpoints(dev: torch.device) -> dict[str, dict]:
     """The Whisper serve's sources (``CHECKPOINTS``) at the published shapes
     and dtypes, drawn on the card from torch seeds and written under
     ``CHECKPOINT_DIR`` by the conversion tool's safetensors writer (the LM and
-    Whisper) or ``torch.save`` (Smart Turn); then each converted by the tool
-    on the card, as a user runs it, the three subprocesses at once.  Returns,
-    per family, the source and output paths, their bytes, the source's draw
-    and write seconds, the conversion's seconds (its process's start to its
-    end, polled every 50 ms) and the tool's peak RSS and its RSS before
-    converting (the CUDA context included)."""
-    import re
-
+    Whisper) or ``torch.save`` (Smart Turn); then the three conversions
+    started at once, a process each, as a user runs the tool on the card,
+    each with a thread that notes its end.  ``main`` starts them before the
+    kernel phases, whose times are device times (the tool's work is numpy on
+    the host and copies to and from the card), and ``whisper_serve_phase``
+    collects them (``finish_serve_checkpoints``).  Returns, per family, the
+    source and output paths, the source's draw and write seconds and the
+    running conversion."""
     from s2s_tpu_torch.models.decoder_lm import DecoderLMConfig
     from s2s_tpu_torch.models.whisper import WhisperConfig
     from s2s_tpu_torch.tools import convert_checkpoint as cc
@@ -3420,7 +3476,7 @@ def write_serve_checkpoints(dev: torch.device) -> dict[str, dict]:
         "distil-large-v3": lambda gen, dt: hf_whisper_state_dict(WhisperConfig.distil_large_v3(), gen, dt),
         "smart-turn": lambda gen, dt: smart_turn_state_dict(WhisperConfig.tiny(), gen, dt),
     }
-    out, procs = {}, {}
+    out = {}
     for seed, (family, (name, dtype)) in enumerate(CHECKPOINTS.items()):
         src = os.path.join(CHECKPOINT_DIR, name)
         t0 = time.perf_counter()
@@ -3432,35 +3488,57 @@ def write_serve_checkpoints(dev: torch.device) -> dict[str, dict]:
         out[family] = {"src": src, "out": os.path.join(CHECKPOINT_DIR, family + ".npz"),
                        "draw_write_s": time.perf_counter() - t0}
         del sd
-    for family, f in out.items():  # the three conversions at once, a process each, its output to a file
+    torch.cuda.empty_cache()
+    for family, f in out.items():  # a process each, its output to a file
         with open(f["out"] + ".log", "w") as log:
-            procs[family] = (time.perf_counter(), subprocess.Popen(
+            f["t0"] = time.perf_counter()
+            f["proc"] = subprocess.Popen(
                 [sys.executable, "-m", "s2s_tpu_torch.tools.convert_checkpoint", "--family", family,
-                 "--src", f["src"], "--out", f["out"]], stdout=log, stderr=subprocess.STDOUT, text=True))
+                 "--src", f["src"], "--out", f["out"]], stdout=log, stderr=subprocess.STDOUT, text=True)
+        STARTED.append(f["proc"])
+        f["waiter"] = threading.Thread(target=_note_end, args=(f,), daemon=True)
+        f["waiter"].start()
+    return out
+
+
+def _note_end(f: dict) -> None:
+    f["proc"].wait()
+    f["convert_s"] = time.perf_counter() - f["t0"]
+
+
+def finish_serve_checkpoints(files: dict[str, dict]) -> dict[str, dict]:
+    """The conversions of ``start_serve_checkpoints``, each ended within
+    CONVERT_TIMEOUT_S of its start (else killed) with exit 0 and its counts
+    printed.  Returns, per family, the paths, their bytes, the source's draw
+    and write seconds, the conversion's seconds (its process's start to its
+    end) and the tool's peak RSS and its RSS before converting (the CUDA
+    context included)."""
     try:
-        while any(proc.poll() is None for _, proc in procs.values()):
-            check(time.perf_counter() - min(t0 for t0, _ in procs.values()) < CONVERT_TIMEOUT_S,
-                  f"the conversions ended within {CONVERT_TIMEOUT_S} s")
-            for family, (t0, proc) in procs.items():
-                if "convert_s" not in out[family] and proc.poll() is not None:
-                    out[family]["convert_s"] = time.perf_counter() - t0
-            time.sleep(0.05)
+        for family, f in files.items():
+            try:
+                f["proc"].wait(timeout=max(0.0, CONVERT_TIMEOUT_S - (time.perf_counter() - f["t0"])))
+            except subprocess.TimeoutExpired:
+                check(False, f"convert_checkpoint --family {family} ended within {CONVERT_TIMEOUT_S} s")
     finally:
-        for _, proc in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    for family, (t0, proc) in procs.items():
-        out[family].setdefault("convert_s", time.perf_counter() - t0)
-        with open(out[family]["out"] + ".log") as log:
+        for f in files.values():
+            if f["proc"].poll() is None:
+                f["proc"].kill()
+                f["proc"].wait()
+    out = {}
+    for family, f in files.items():
+        f["waiter"].join()
+        check(f["convert_s"] <= CONVERT_TIMEOUT_S,
+              f"convert_checkpoint --family {family} ended within {CONVERT_TIMEOUT_S} s: {f['convert_s']}")
+        with open(f["out"] + ".log") as log:
             printed = log.read()
-        check(proc.returncode == 0, f"convert_checkpoint --family {family}: {printed[-2000:]}")
+        check(f["proc"].returncode == 0, f"convert_checkpoint --family {family}: {printed[-2000:]}")
         m = re.search(r"wrote .*: (\d+) arrays, ([\d.]+)M params, peak RSS ([\d.]+) MiB \(([\d.]+) MiB before",
                       printed)
         check(m is not None, f"convert_checkpoint --family {family} printed its counts: {printed[-500:]}")
-        out[family].update(src_bytes=os.path.getsize(out[family]["src"]), out_bytes=os.path.getsize(out[family]["out"]),
-                           arrays=int(m.group(1)), params_m=float(m.group(2)), peak_rss_mib=float(m.group(3)),
-                           start_rss_mib=float(m.group(4)))
+        out[family] = {**{k: f[k] for k in ("src", "out", "draw_write_s", "convert_s")},
+                       "src_bytes": os.path.getsize(f["src"]), "out_bytes": os.path.getsize(f["out"]),
+                       "arrays": int(m.group(1)), "params_m": float(m.group(2)), "peak_rss_mib": float(m.group(3)),
+                       "start_rss_mib": float(m.group(4))}
     return out
 
 
@@ -3512,10 +3590,11 @@ class _Lines(logging.Handler):
         self.records.append(record)
 
 
-def whisper_serve_phase(dev: torch.device, card: list[str]) -> dict[str, int]:
+def whisper_serve_phase(dev: torch.device, card: list[str], conversions: dict[str, dict]) -> dict[str, int]:
     """The single-session serve with Whisper distil-large-v3 and Smart Turn
     (``WHISPER_FLAGS``) from checkpoints the conversion tool wrote
-    (``write_serve_checkpoints``: SmolLM2-1.7B, distil-large-v3, Smart Turn),
+    (*conversions*, ``finish_serve_checkpoints``: SmolLM2-1.7B,
+    distil-large-v3, Smart Turn),
     so the LM is int8: build (the STT handler warms Whisper up; each
     checkpoint load timed), then every count set to 0, one text turn and the
     voice turns.  Smart Turn's predictions and the Whisper and Smart Turn
@@ -3535,7 +3614,7 @@ def whisper_serve_phase(dev: torch.device, card: list[str]) -> dict[str, int]:
     from s2s_tpu_torch.registry import GLOBAL_MODEL_CACHE
     from s2s_tpu_torch.vad import smart_turn
 
-    files = write_serve_checkpoints(dev)
+    files = finish_serve_checkpoints(conversions)
     flags = [*WHISPER_FLAGS, "--llm_checkpoint", files["smollm2-1.7b"]["out"],
              "--stt_checkpoint", files["distil-large-v3"]["out"],
              "--vad_smart_turn_checkpoint", files["smart-turn"]["out"]]
@@ -3664,6 +3743,98 @@ def whisper_serve_phase(dev: torch.device, card: list[str]) -> dict[str, int]:
           smart_turn_inference_ms=[p.inference_ms for p in predictions],
           smart_turn_probability=[p.probability for p in predictions], encodes=seen, launches=launches)
     return launches
+
+
+def _harness_row(card: list[str], tool: str, fn, *args, **kwargs) -> dict:
+    """One tool's run (``fn(*args, **kwargs)``), timed, its model freed
+    (a garbage collection, the allocator's cache emptied); printed as a
+    ``harnesses`` line.  Returns the row."""
+    t0 = time.perf_counter()
+    row = fn(*args, **kwargs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("harnesses", tool=tool, card=card, seconds=time.perf_counter() - t0, **row)
+    return row
+
+
+def harnesses_phase(dev: torch.device, card: list[str], w8a16_s: float) -> dict[str, int]:
+    """``harnesses``: the four tools ported from the JAX scripts
+    (``s2s_tpu_torch/tools/{microbench_weights,microbench_bscale,benchmark_stt,benchmark_tts}.py``)
+    in this process at full width, each model freed before the next is
+    built, every row printed with the card.  ``microbench_weights``'s six
+    rows (SmolLM2-1.7B's linears at 16 rows, 24 layers, 8 steps): the W8A16
+    kernel's launches in one eager call of the seven-, four- and two-call
+    mixes exactly 7, 4 and 2 x 24 x 8, the seven-call replay within
+    HARNESS_MIX_REL of *w8a16_s* (``w8a8_microbench``'s reading of the same
+    mix); ``microbench_bscale``'s six; ``benchmark_stt`` for HARNESS_STT
+    (random weights): over its transcriptions (warm-up, one run, a
+    progressive tick) one flash launch a Whisper encoder layer each and one
+    log-mel (Parakeet: its batched frontend's) each, none elsewhere;
+    ``benchmark_tts`` for HARNESS_TTS (one run; Pocket's output conv scaled
+    as for its serve, ``audible_pocket``, its depth whole): every row with
+    audio, Qwen3-TTS's int8 run on the W8A16 kernel.  Every W8A16
+    shape of the layer mixes must be one that ``int8_matmul`` holds against
+    its plain version at their 16 rows.  Returns the int8, flash and log-mel
+    kernels' launches over the phase (the counts set to 0 before it): the
+    eager ones (a call made while a CUDA graph is captured launches nothing
+    and is taken back from the count; the replays are not counted)."""
+    from s2s_tpu_torch.models import pocket_tts, whisper
+    from s2s_tpu_torch.registry import ModelCache
+    from s2s_tpu_torch.tools import benchmark_stt, benchmark_tts, microbench_bscale
+    from s2s_tpu_torch.tools import microbench_weights as mbw
+
+    counters = _launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    sizes = mbw.CONFIGS["smollm2-1.7b"]
+    held = {(k, n) for k, n in INT8_SHAPES + HARNESS_INT8_SHAPES}
+    mixes = {shape for name in ("seven", "four", "two") for shape in mbw.layer_shapes(sizes)[name]}
+    check(sizes.rows == HARNESS_ROWS and mixes <= held,
+          f"harnesses: every W8A16 shape of the layer mixes {sorted(mixes - held)} at {sizes.rows} rows is held "
+          "against its plain version by int8_matmul")
+    rows = _harness_row(card, "microbench_weights", lambda: {"rows": mbw.run(sizes, dev)})["rows"]
+    rows = {row["row"]: row for row in rows}
+    for name, n in {"seven_calls_kernel": 7, "four_calls_kernel": 4, "two_calls_kernel": 2}.items():
+        want = n * sizes.layers * sizes.steps
+        check(rows[name]["int8_matmul_launches"] == want,
+              f"harnesses {name}: {rows[name]['int8_matmul_launches']} W8A16 launches in one eager call, want {want}")
+    seven = rows["seven_calls_kernel"]["seven_calls_kernel"]
+    rel = abs(seven - w8a16_s) / w8a16_s
+    check(rel <= HARNESS_MIX_REL,
+          f"harnesses seven_calls_kernel {seven} s against w8a8_microbench's {w8a16_s} s: "
+          f"rel {rel} > {HARNESS_MIX_REL}")
+    _harness_row(card, "microbench_bscale",
+                 lambda: {"rows": microbench_bscale.run(*microbench_bscale.CONFIGS["smollm2-1.7b"], dev)})
+
+    enc_layers = whisper.WhisperConfig.distil_large_v3().n_enc_layers
+    for backend, size in HARNESS_STT:
+        row = _harness_row(card, "benchmark_stt", benchmark_stt.run, backend, size, seconds=HARNESS_AUDIO_S, runs=1,
+                           progressive=True, device=str(dev))
+        n = row["transcriptions"]
+        want = {"flash_attention": enc_layers * n if backend == "whisper" else 0,
+                "log_mel": 0 if backend == "parakeet-tdt" else n,
+                "parakeet_log_mel": n if backend == "parakeet-tdt" else 0}
+        check(n == 3 and row["launches"] == want,
+              f"harnesses benchmark_stt {backend}: launches {row['launches']} over {n} transcriptions, want {want}")
+
+    def tts_row(backend: str, quantize: str | None) -> dict:
+        cache = ModelCache()
+        if backend == "pocket":  # whole, under the factory's key, with the serves' output scale (``audible_pocket``)
+            cache.get(("pocket-tts", None, None, str(dev)), lambda: audible_pocket(pocket_tts.PocketTTS(device=dev)))
+        try:
+            return benchmark_tts.run(backend, "1.7b", quantize, runs=1, device=str(dev), model_cache=cache)
+        finally:
+            cache.clear()
+
+    for backend, quantize in HARNESS_TTS:
+        row = _harness_row(card, "benchmark_tts", tts_row, backend, quantize)
+        check(row["avg_audio_s"] > 0, f"harnesses benchmark_tts {backend}: no audio")
+        if quantize:
+            check(all(n > 0 for n in row["int8_matmul_run_launches"]),
+                  f"harnesses benchmark_tts {backend} {quantize}: W8A16 launches {row['int8_matmul_run_launches']}")
+    torch.cuda.synchronize()
+    return {"int8_matmul": counters["int8_matmul"].launches, "flash_attention": counters["flash_attention"].launches,
+            "log_mel": counters["log_mel"].launches + counters["parakeet_log_mel"].launches}
 
 
 def head_logits_phase(dev: torch.device, card: list[str]) -> dict:
@@ -4597,11 +4768,12 @@ def audible_pocket(model):
 
 def tts_serve_phase(dev: torch.device, card: list[str], tts: str) -> dict[str, int]:
     """The 4-session batched cascade with ``--tts kokoro``, ``facebookMMS``,
-    ``pocket`` or ``chatTTS`` (``tts_flags(BATCHED_FLAGS, tts)``; full
-    width, random weights from seed 0, TF32 off as the builder sets it; Pocket's and
-    ChatTTS's models at the depths of ``served_tts_model``, placed in the
-    model cache under the factories' keys, Pocket's with ``audible_pocket``): build (the LM and Parakeet
-    engines warmed), every count set to 0, four concurrent text turns (one a
+    ``pocket`` or ``chatTTS`` (``tts_flags(BATCHED_FLAGS, tts)``, ChatTTS's
+    speakers drawn from ``--tts_seed 0``; full width, random weights from
+    seed 0, TF32 off as the builder sets it; Pocket's and ChatTTS's models
+    at the depths of ``served_tts_model``, placed in the model cache under
+    the factories' keys, Pocket's with ``audible_pocket``): build (the LM
+    and Parakeet engines warmed), every count set to 0, four concurrent text turns (one a
     session), then voice turns in one session (``VOICE_TONES_HZ`` until one
     is answered); every reply must be non-silent PCM with ``response.done``,
     and the int8, decode-attention and Parakeet log-mel kernels must have
@@ -4613,7 +4785,9 @@ def tts_serve_phase(dev: torch.device, card: list[str], tts: str) -> dict[str, i
     from s2s_tpu_torch.registry import GLOBAL_MODEL_CACHE
 
     name, method = TTS_SERVES[tts]
-    flags = tts_flags(BATCHED_FLAGS, tts)
+    # the flag parses as the string "0", which random.Random seeds otherwise than benchmark_tts's int 0: the
+    # serve's speakers are not the benchmark's
+    flags = tts_flags(BATCHED_FLAGS, tts) + (["--tts_seed", "0"] if tts == "chatTTS" else [])
     cls = _served_tts_class(tts)
     counters = _launch_counters()
     synths: list[tuple[float, float]] = []
@@ -5304,6 +5478,39 @@ def live_blocks(snapshot: dict, top: int = LIVE_BLOCK_GROUPS) -> list[dict]:
     return [{"bytes": size, "blocks": n, "frames": list(frames)} for frames, (size, n) in ranked[:top]]
 
 
+def depth_cuts() -> int:
+    """``python3 chip_smoke.py --depth-cuts``: what the run's depth cut of
+    ``decode_programs`` saves on this host: the phase at DECODE_LAYERS, then
+    whole (the cut first: a first run pays what a second does not, so the
+    saving is if anything understated), as a ``depth_cut`` line with the
+    card."""
+    global DECODE_LAYERS
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible to PyTorch", file=sys.stderr)
+        return 1
+    from s2s_tpu_torch.models import decoder_lm, qwen3_tts
+    from s2s_tpu_torch.ops import _build
+
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()
+    _build.build()
+    tts = qwen3_tts.Qwen3TTSConfig.qwen3_tts_12hz_1_7b()
+    cut = DECODE_LAYERS
+    whole = (decoder_lm.DecoderLMConfig.smollm2_1_7b().n_layers, tts.lm.n_layers, tts.cp.n_layers)
+    took = []
+    for DECODE_LAYERS in (cut, whole):
+        t0 = time.perf_counter()
+        with kept_tf32(), tf32_mode(False):
+            decode_programs_phase(dev, smi)
+        took.append(time.perf_counter() - t0)
+        gc.collect()
+        torch.cuda.empty_cache()
+    DECODE_LAYERS = cut
+    phase("depth_cut", card=smi, phase_name="decode_programs", cut=cut, whole=whole, cut_s=took[0], whole_s=took[1])
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to PyTorch", file=sys.stderr)
@@ -5352,6 +5559,8 @@ def main() -> int:
     library, _ = _build.build()
     seconds["build"] = time.perf_counter() - t0
     phase("build", library=str(library.name), seconds=_build.build_seconds)
+    # the Whisper serve's checkpoints, converted on the host while the kernel phases time the card
+    conversions = run("serve_checkpoints", start_serve_checkpoints, dev)
     int8 = run("int8_matmul", weight_only_phase, dev, "int8", tf32=False)
     attn = run("decode_attention", attention_phase, dev, tf32=False)
     slot_form = run("decode_attention_slot_form", slot_form_phase, dev, tf32=False)
@@ -5387,7 +5596,8 @@ def main() -> int:
     flash = run("flash_attention", flash_attention_phase, dev, tf32=False)
     logmel = run("log_mel", log_mel_phase, dev, tf32=False)
     run("tiny_whisper_parity", tiny_whisper_parity_phase, dev, tf32=False)
-    whisper_launches = run("whisper_serve", whisper_serve_phase, dev, smi)
+    whisper_launches = run("whisper_serve", whisper_serve_phase, dev, smi, conversions)
+    harness = run("harnesses", harnesses_phase, dev, smi, micro["seven_calls_w8a16_s"])
     # the new paths run under torch's defaults (the serves set TF32 off for themselves)
     run("head_logits", head_logits_phase, dev, smi)
     run("resample", resample_phase, dev)
@@ -5418,6 +5628,7 @@ def main() -> int:
          "deployment_serve_launches": deployment["int8_matmul"], **tts_serves["int8_matmul"],
          "whisper_serve_launches": whisper_launches["int8_matmul"],
          "whisper_serve_lm_launches": whisper_launches["int8_matmul_lm"],
+         "harnesses_launches": harness["int8_matmul"],
          **{k: int8[k] for k in keys}, "unscaled_form": forms["int8_matmul"]},
         {"name": "decode_attention", "route": "cuda", "source": "s2s_tpu_torch/csrc/decode_attention.cu",
          "replaces": "s2s_tpu/ops/decode_attention.py:44", "launches": launches["decode_attention"],
@@ -5437,11 +5648,13 @@ def main() -> int:
         # both callers: the Whisper and Smart Turn encoders, SigLIP's tower
         {"name": "flash_attention", "route": "cuda", "source": "s2s_tpu_torch/csrc/flash_attention.cu",
          "replaces": "s2s_tpu/ops/pallas_attention.py:68", "launches": sum(flash_launches.values()),
-         "launches_by_caller": flash_launches, **{k: flash[k] for k in keys}, "siglip": flash["siglip"]},
+         "launches_by_caller": flash_launches, "harnesses_launches": harness["flash_attention"],
+         **{k: flash[k] for k in keys}, "siglip": flash["siglip"]},
         # its callers: the Whisper cell's and Paraformer's log-mels, the Parakeet cells' frontends
         {"name": "log_mel", "route": "cuda", "source": "s2s_tpu_torch/csrc/log_mel.cu",
          "replaces": "s2s_tpu/ops/pallas_mel.py:73", "launches": sum(mel_launches.values()),
-         "launches_by_caller": mel_launches, **{k: logmel[k] for k in keys},
+         "launches_by_caller": mel_launches, "harnesses_launches": harness["log_mel"],
+         **{k: logmel[k] for k in keys},
          "parakeet_frontend": {k: logmel["parakeet"][k] for k in ("rows", "seconds", "max_rel_err", "ms", "plain_ms",
                                                                   "row_loop_ms", "bound_ms", "bound_by",
                                                                   "library_ms")}},
@@ -5457,11 +5670,14 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        sys.exit(main())
+        sys.exit(depth_cuts() if sys.argv[1:] == ["--depth-cuts"] else main())
     except Exception:  # noqa: BLE001 - a failed phase can leave a serve's threads running: exit without them
         import traceback
 
         traceback.print_exc()
+        for proc in STARTED:
+            if proc.poll() is None:
+                proc.kill()
         sys.stdout.flush()
         sys.stderr.flush()
         os._exit(1)
